@@ -1,0 +1,78 @@
+"""The port stands alone: `wetts_tpu_torch` and `chip_smoke` import neither
+jax nor anything of `wetts_tpu`, and the entry points refuse to run without
+a GPU unless asked for the CPU.
+
+Checked in a fresh interpreter with `sys.modules["jax"] = None` (so any
+`import jax` fails) and a meta-path finder that refuses `wetts_tpu` and
+`wetts_tpu.*` by exact name (`wetts_tpu_torch` shares the prefix).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = textwrap.dedent("""
+    import importlib
+    import importlib.abc
+    import pkgutil
+    import sys
+
+    sys.modules["jax"] = None
+    sys.modules["flax"] = None
+
+    def refused(name):
+        return name == "wetts_tpu" or name.startswith("wetts_tpu.")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if refused(name):
+                raise ImportError(f"the port imported {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+
+    import wetts_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        wetts_tpu_torch.__path__, "wetts_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke  # noqa: F401  (main() is not run)
+
+    leaked = [m for m in sys.modules if refused(m)
+              or (m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  and sys.modules[m] is not None)]
+    assert not leaked, leaked
+
+    import torch
+    from wetts_tpu_torch.config import Config
+    from wetts_tpu_torch.models.synthesizer import Synthesizer
+    from wetts_tpu_torch.serving.engine import SynthesisEngine
+
+    cfg = Config.from_dict({"model": {
+        "inter_channels": 8, "hidden_channels": 8, "filter_channels": 16,
+        "n_layers": 1, "resblock_kernel_sizes": [3],
+        "resblock_dilation_sizes": [[1]], "upsample_rates": [2],
+        "upsample_kernel_sizes": [4], "upsample_initial_channel": 8,
+        "gin_channels": 0}, "num_phones": 4})
+    SynthesisEngine(cfg, Synthesizer(cfg), {"sil": 0}, device="cpu")
+    if not torch.cuda.is_available():
+        try:
+            SynthesisEngine(cfg, Synthesizer(cfg), {"sil": 0})
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("engine without a GPU did not raise")
+    print("OK", len(names))
+""")
+
+
+def test_port_imports_no_jax_and_needs_a_gpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n_modules = int(proc.stdout.split()[-1])
+    assert n_modules >= 20  # every module of the package was imported
