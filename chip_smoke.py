@@ -10,9 +10,10 @@ Phases, each of which must pass (any failure exits non-zero):
    four VITS-base MRF stage shapes of a batch of 4 at the 352-frame decode
    bucket, f32 with TF32 off, and time both; time the model's three
    synthesis stages at the same bucket;
-3. synthesize a batch of raw-phone requests with `SynthesisEngine` on the
-   GPU at the full width of examples/baker/configs/v1.json (seeded random
-   weights, a synthetic phone table, 4 speakers);
+3. synthesize 48 batches of 4 raw-phone requests of about 4 s of audio
+   each with `SynthesisEngine` on the GPU at the full width of
+   examples/baker/configs/v1.json (seeded random weights, a synthetic phone
+   table, 4 speakers), and report all the audio over all the wall time;
 4. serve 3 HTTP requests through `TtsServer` on 127.0.0.1 and shut it down;
 5. check the GPU's audio against the plain path on the CPU on a small input.
 Phases 3 and 4 are the main path: K1's launch count is zeroed just before
@@ -44,6 +45,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BATCH, FRAME_BUCKET = 4, 352
 N_PHONES, N_SPEAKERS, SEED = 64, 4, 1234
+SYNTH_BATCHES = 48  # of BATCH ~4 s requests: a window of a few seconds
 
 
 def check(cond: bool, msg: str) -> None:
@@ -139,11 +141,36 @@ def phase_model_stages(model, rows):
     return out
 
 
+@torch.no_grad()
+def random_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Seeded random weights at the scale of torch's default init, for runs
+    without a checkpoint: every tensor U(-1/sqrt(fan_in), +), with fan_in =
+    numel / shape[0]; LayerNorm gamma 1 and beta 0; weight-norm g = ||v||,
+    then folded. Nothing is left at zero, so no path is hidden."""
+    from wetts_tpu_torch.models.layers import WeightNormed
+
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("gamma", "beta", "weight_g"):
+            continue
+        fan_in = p.numel() // p.shape[0] if p.ndim > 1 else p.numel()
+        bound = fan_in ** -0.5
+        p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
+    for module in model.modules():
+        if isinstance(module, WeightNormed) and hasattr(module, "weight_v"):
+            v = module.weight_v
+            module.weight_g.copy_(torch.sqrt(
+                (v * v).sum(dim=tuple(range(1, v.ndim)), keepdim=True)))
+            module.fold_()
+    return model
+
+
 def build_engine(cfg):
     from wetts_tpu_torch.models.synthesizer import Synthesizer
     from wetts_tpu_torch.serving.engine import SynthesisEngine
 
-    model = Synthesizer(cfg).random_init_(SEED)
+    model = random_init_(Synthesizer(cfg), SEED)
     phone2id = {"sil": 0, **{f"p{i}": i for i in range(1, N_PHONES)}}
     speakers = {f"spk{i}": i for i in range(N_SPEAKERS)}
     # random weights predict about one frame per phone; length_scale 5
@@ -158,15 +185,31 @@ def phrase(rng, n: int) -> str:
     return " ".join(f"p{int(i)}" for i in rng.integers(1, N_PHONES, n))
 
 
-def phase_synthesis(engine, rng):
-    """A batch of raw-phone requests through SynthesisEngine on the GPU."""
-    texts = [phrase(rng, n) for n in (18, 25, 30, 12)]
-    sids = [engine.speaker_id(f"spk{i}") for i in range(len(texts))]
-    ids = [engine.text_to_phone_ids(t) for t in texts]
+def utterance_batches(engine, rng, n_batches: int):
+    """Batches of BATCH raw-phone requests of 55-63 phones (with the `sil`
+    head at most 64, the 64-phone text bucket): about 4 s of audio each at
+    the engine's length_scale; the decode buckets they reach are reported."""
+    return [([engine.text_to_phone_ids(phrase(rng, int(n)))
+              for n in rng.integers(55, 64, BATCH)],
+             [engine.speaker_id(f"spk{i}") for i in range(BATCH)])
+            for _ in range(n_batches)]
+
+
+def phase_synthesis(engine, batches):
+    """Batches of ~4 s requests through SynthesisEngine on the GPU, one
+    after another; the rate is all audio over all the wall time."""
+    from wetts_tpu_torch.serving.engine import TEXT_BUCKETS, FRAMES_PER_TEXT
+
+    audios, batch_ms, buckets = [], [], {}
     t0 = time.perf_counter()
-    audios = []
-    for _ in range(3):
-        audios += engine.synthesize_ids_batch(ids, sids)
+    for ids, sids in batches:
+        tb = time.perf_counter()
+        out = engine.synthesize_ids_batch(ids, sids)
+        batch_ms.append(1e3 * (time.perf_counter() - tb))
+        audios += out
+        fb = engine._frame_bucket(max(a.size for a in out) // engine.hop,
+                                  TEXT_BUCKETS[1] * FRAMES_PER_TEXT)
+        buckets[fb] = buckets.get(fb, 0) + 1
     wall = time.perf_counter() - t0
     for a in audios:
         check(a.ndim == 1 and a.size > 0 and a.size % engine.hop == 0,
@@ -174,8 +217,12 @@ def phase_synthesis(engine, rng):
         check(bool(np.isfinite(a).all()) and float(np.abs(a).max()) > 0,
               "audio not finite or all zero")
     seconds = sum(a.size for a in audios) / engine.sample_rate
-    return {"requests": len(audios), "audio_s": seconds, "wall_s": wall,
-            "audio_s_per_s": seconds / wall}
+    return {"requests": len(audios), "batch": BATCH, "audio_s": seconds,
+            "mean_request_audio_s": seconds / len(audios), "wall_s": wall,
+            "audio_s_per_s": seconds / wall,
+            "batch_ms_p50": float(np.median(batch_ms)),
+            "batch_ms_min": min(batch_ms), "batch_ms_max": max(batch_ms),
+            "frame_buckets": {str(k): v for k, v in sorted(buckets.items())}}
 
 
 def phase_serving(engine, rng):
@@ -243,7 +290,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    cuda_build.build_all(KERNELS)
+    for name in KERNELS:
+        cuda_build.build(name)
     print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         for line in cuda_build.compiler_log(name).splitlines():
@@ -257,10 +305,14 @@ def main() -> int:
     print("model_stages " + json.dumps(phase_model_stages(engine.model, rows)))
 
     rng = np.random.default_rng(SEED)
-    engine.synthesize(phrase(rng, 10))  # warm-up: cuDNN plans, allocator
+    # warm-up (cuDNN plans, allocator), then the main path's requests
+    engine.synthesize(phrase(rng, 10))
+    for ids, sids in utterance_batches(engine, rng, 2):
+        engine.synthesize_ids_batch(ids, sids)
+    batches = utterance_batches(engine, rng, SYNTH_BATCHES)
     mrf_stage.launches = 0
     engine.stage_times.reset()
-    synth = phase_synthesis(engine, rng)
+    synth = phase_synthesis(engine, batches)
     phase_serving(engine, rng)
     launches = mrf_stage.launches
     report = engine.stage_times.report()

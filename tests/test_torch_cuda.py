@@ -14,6 +14,7 @@ version's convolutions in TF32).
 import pytest
 import torch
 
+from chip_smoke import random_init_
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.models.mrf import mrf_stage, mrf_stage_reference
 from wetts_tpu_torch.models.synthesizer import Synthesizer
@@ -94,7 +95,7 @@ def test_infer_on_gpu_matches_cpu(cuda):
                   "upsample_rates": [4, 4], "upsample_initial_channel": 64,
                   "upsample_kernel_sizes": [8, 8], "gin_channels": 16},
         "num_phones": 24, "num_speakers": 3})
-    model = Synthesizer(cfg).random_init_(0).eval()
+    model = random_init_(Synthesizer(cfg), 0).eval()
     x = torch.tensor([[3, 5, 7, 1, 2, 9, 11, 4], [6, 2, 8, 8, 1, 0, 0, 0]])
     xl, sid = torch.tensor([8, 5]), torch.tensor([0, 2])
     with torch.inference_mode():

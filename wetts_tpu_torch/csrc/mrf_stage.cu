@@ -36,8 +36,11 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
+constexpr int kMaxDevices = 64;
 constexpr int kThreads = 256;
 constexpr int kCi = 8;  // input channels staged per step
 
@@ -213,11 +216,26 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
   constexpr int KS = kCi * (TCO + 4) + 4;
   const size_t smem = 2 * ((size_t)(TT + (K - 1) * dil) * kCi
                             + (size_t)K * KS) * sizeof(float);
+  // above 48 KB an instance must be allowed more dynamic shared memory; it
+  // is allowed the device's whole opt-in size once per device (the
+  // allowance is a ceiling: occupancy follows each launch's own size)
+  static std::atomic<bool> allowed[kMaxDevices];
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mrf_conv_kernel<TCO, TT, K>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!allowed[dev].load()) {
+      int optin = 0;
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e != cudaSuccess) return e;
+      e = cudaFuncSetAttribute(mrf_conv_kernel<TCO, TT, K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+      if (e != cudaSuccess) return e;
+      allowed[dev].store(true);
+    }
   }
   const dim3 grid((T + TT - 1) / TT, (C + TCO - 1) / TCO, B);
   mrf_conv_kernel<TCO, TT, K><<<grid, kThreads, smem, stream>>>(

@@ -25,7 +25,11 @@ from wetts_tpu_torch.models.layers import (
     ConvTranspose1d,
     get_padding,
 )
-from wetts_tpu_torch.models.mrf import Branch, mrf_stage
+from wetts_tpu_torch.models.mrf import Branch, check_stage, mrf_stage
+
+
+def _forget_stages(module: "Generator", _incompatible_keys) -> None:
+    module._checked_stages = None
 
 
 class ResBlock1(nn.Module):
@@ -96,21 +100,39 @@ class Generator(nn.Module):
             for rk, rd in zip(self.kernel_sizes, self.dilations):
                 self.resblocks.append(res_cls(ch, rk, rd))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
+        self._checked_stages: Optional[List[List[Branch]]] = None
+        self.register_load_state_dict_post_hook(_forget_stages)
 
     def stage_convs(self, i: int) -> List[Branch]:
         """Stage i's folded (weight, bias) pairs, one list per branch."""
         n = len(self.kernel_sizes)
         return [rb.folded_convs() for rb in self.resblocks[i * n:(i + 1) * n]]
 
+    def checked_stages(self) -> List[List[Branch]]:
+        """Every stage's folded pairs, passed through `check_stage` once and
+        kept until the module's tensors are moved, cast or reloaded (folding
+        writes the kept tensors in place)."""
+        if self._checked_stages is None:
+            stages = [self.stage_convs(i) for i in range(len(self.ups))]
+            for stage in stages:
+                check_stage(stage, self.resblock, self.kernel_sizes,
+                            self.dilations)
+            self._checked_stages = stages
+        return self._checked_stages
+
+    def _apply(self, fn, *args, **kwargs):
+        self._checked_stages = None
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         x = self.conv_pre(x)
         if g is not None and hasattr(self, "cond"):
             x = x + self.cond(g)
-        for i, up in enumerate(self.ups):
+        for up, stage in zip(self.ups, self.checked_stages()):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
-            h = mrf_stage(x.transpose(1, 2).contiguous(), self.stage_convs(i),
-                          self.resblock, self.kernel_sizes, self.dilations)
+            h = mrf_stage(x.transpose(1, 2).contiguous(), stage, self.resblock,
+                          self.kernel_sizes, self.dilations, checked=True)
             x = h.transpose(1, 2)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)

@@ -43,11 +43,20 @@ def convs_per_branch(resblock_kind: str, dilations: Sequence[int]) -> int:
     return len(dilations) * (2 if resblock_kind == "1" else 1)
 
 
-def _check_topology(stage, resblock_kind, kernel_sizes, dilations, c):
+def check_stage(stage: Sequence[Branch], resblock_kind: str,
+                kernel_sizes: Sequence[int],
+                dilations: Sequence[Sequence[int]]) -> None:
+    """Raise ValueError unless `stage` fits the topology: per branch j, one
+    (weight [C, C, K_j], bias [C]) pair per conv, all on one device, and
+    contiguous f32 where that device is a GPU (the kernel reads them by
+    pointer). A caller that keeps a stage checks it once, when it is built,
+    and passes `checked=True` to `mrf_stage`."""
     if resblock_kind not in ("1", "2"):
         raise ValueError(f"resblock must be '1' or '2', got {resblock_kind!r}")
     if not len(stage) == len(kernel_sizes) == len(dilations):
         raise ValueError("stage, kernel_sizes and dilations differ in length")
+    c = stage[0][0][0].shape[0]
+    device = stage[0][0][0].device
     for convs, k, dils in zip(stage, kernel_sizes, dilations):
         if len(convs) != convs_per_branch(resblock_kind, dils):
             raise ValueError(f"branch k={k} has {len(convs)} convs")
@@ -55,6 +64,12 @@ def _check_topology(stage, resblock_kind, kernel_sizes, dilations, c):
             if tuple(w.shape) != (c, c, k) or tuple(b.shape) != (c,):
                 raise ValueError(f"conv weight {tuple(w.shape)} / bias "
                                  f"{tuple(b.shape)} do not fit C={c}, k={k}")
+            if w.device != device or b.device != device:
+                raise ValueError("MRF weights lie on more than one device")
+            if device.type == "cuda" and not (
+                    w.dtype == b.dtype == torch.float32
+                    and w.is_contiguous() and b.is_contiguous()):
+                raise ValueError("MRF weights on a GPU must be contiguous f32")
 
 
 def mrf_stage_reference(h: torch.Tensor, stage: Sequence[Branch],
@@ -91,15 +106,23 @@ def _library() -> ctypes.CDLL:
 
 def mrf_stage(h: torch.Tensor, stage: Sequence[Branch], resblock_kind: str,
               kernel_sizes: Sequence[int],
-              dilations: Sequence[Sequence[int]]) -> torch.Tensor:
+              dilations: Sequence[Sequence[int]],
+              checked: bool = False) -> torch.Tensor:
     """One MRF stage, h [B, T, C] -> [B, T, C].
 
     stage[j]: branch j's (weight [C, C, K_j], bias [C]) pairs in execution
     order (ResBlock1: conv1_0, conv2_0, conv1_1, ...; ResBlock2: conv_0, ...),
-    with weight norm already folded.
+    with weight norm already folded. `checked=True` says the caller has
+    passed `stage` through `check_stage` since its weights last changed
+    place or type; otherwise it is checked here.
     """
     b, t, c = h.shape
-    _check_topology(stage, resblock_kind, kernel_sizes, dilations, c)
+    if not checked:
+        check_stage(stage, resblock_kind, kernel_sizes, dilations)
+    w0 = stage[0][0][0]
+    if w0.shape[0] != c or w0.device != h.device:
+        raise ValueError(f"MRF weights of C={w0.shape[0]} on {w0.device} do "
+                         f"not fit h of C={c} on {h.device}")
     if h.device.type == "cpu":
         return mrf_stage_reference(h, stage, resblock_kind, kernel_sizes,
                                    dilations)
@@ -111,13 +134,6 @@ def mrf_stage(h: torch.Tensor, stage: Sequence[Branch], resblock_kind: str,
                          f"sizes in {KERNEL_TAPS}; got {h.dtype}, C={c}, "
                          f"kernel sizes {tuple(kernel_sizes)}")
     h = h.contiguous()
-    for convs in stage:
-        for w, bias in convs:
-            if (w.device != h.device or bias.device != h.device
-                    or w.dtype != torch.float32 or bias.dtype != torch.float32
-                    or not w.is_contiguous() or not bias.is_contiguous()):
-                raise ValueError("MRF weights must be contiguous f32 on "
-                                 f"{h.device}")
 
     lib = _library()
     stream = torch.cuda.current_stream(h.device).cuda_stream

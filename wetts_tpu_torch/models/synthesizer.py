@@ -30,7 +30,6 @@ from wetts_tpu_torch.models.duration import (
 from wetts_tpu_torch.models.encoders import TextEncoder
 from wetts_tpu_torch.models.flows import ResidualCouplingBlock
 from wetts_tpu_torch.models.hifigan import Generator
-from wetts_tpu_torch.models.layers import WeightNormed
 from wetts_tpu_torch.ops.masking import generate_path, sequence_mask
 
 
@@ -146,26 +145,3 @@ class Synthesizer(nn.Module):
             x, x_lengths, sid, noise_scale, length_scale, noise_scale_w,
             max_frames, generator)
         return self.decode(z, g), y_lengths, attn
-
-    @torch.no_grad()
-    def random_init_(self, seed: int) -> "Synthesizer":
-        """Seeded random weights at the scale of torch's default init (for
-        runs without a checkpoint): every tensor U(-1/sqrt(fan_in), +), with
-        fan_in = numel / shape[0]; LayerNorm gamma 1 and beta 0; weight-norm
-        g = ||v||. Nothing is left at zero, so no path is hidden."""
-        gen = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("gamma", "beta", "weight_g"):
-                continue
-            fan_in = p.numel() // p.shape[0] if p.ndim > 1 else p.numel()
-            bound = fan_in ** -0.5
-            p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
-        for module in self.modules():
-            if isinstance(module, WeightNormed) and hasattr(module,
-                                                             "weight_v"):
-                v = module.weight_v
-                module.weight_g.copy_(torch.sqrt(
-                    (v * v).sum(dim=tuple(range(1, v.ndim)), keepdim=True)))
-                module.fold_()
-        return self

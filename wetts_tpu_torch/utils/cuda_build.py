@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into `wetts_tpu_torch/_build/lib<name>-<hash>.so`,
 which `ctypes` loads; the hash covers the source and the flags, so an edited
-source builds anew. `build_all` starts one `nvcc` per source, all at once.
+source builds anew. A build is written to a temporary file and renamed, so
+a killed or concurrent build never leaves a half-written library behind.
 Nothing is built when a module is imported, and nothing outside the package
 directory is written.
 """
@@ -17,7 +18,6 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -50,33 +50,25 @@ def compiler_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build_all(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named source not yet built, all nvcc runs at once."""
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless it is already built; its path."""
+    target = library_path(name)
+    if target.exists():
+        return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: library_path(n) for n in names}
-    procs = {}
-    for name, target in targets.items():
-        if target.exists():
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC_DIR / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
-            continue
-        targets[name].with_suffix(".log").write_text(out)
-        os.replace(tmp, targets[name])
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return targets
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build of {name} failed: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    target.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, target)
+    return target
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build `csrc/<name>.cu` if needed and load it (once per process)."""
-    return ctypes.CDLL(str(build_all([name])[name]))
+    return ctypes.CDLL(str(build(name)))
