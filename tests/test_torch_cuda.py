@@ -1,6 +1,7 @@
-"""Kernel K1 on the card: the CUDA MRF kernel against its plain PyTorch
-version at VITS-base stage shapes, and the port's synthesis on the GPU
-against the CPU.
+"""The kernels on the card: K1, the CUDA MRF kernel, against its plain
+PyTorch version at VITS-base stage shapes; K2, the CUDA monotonic alignment
+search, exactly equal to its plain version; and the port's synthesis and
+training step on the GPU against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -14,10 +15,11 @@ version's convolutions in TF32).
 import pytest
 import torch
 
-from chip_smoke import random_init_
+from chip_smoke import phase_train_reference, random_init_
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.models.mrf import mrf_stage, mrf_stage_reference
 from wetts_tpu_torch.models.synthesizer import Synthesizer
+from wetts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +29,7 @@ KERNEL_SIZES, DILATIONS = (3, 7, 11), ((1, 3, 5),) * 3  # v1 resblocks
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the MRF kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -107,3 +109,74 @@ def test_infer_on_gpu_matches_cpu(cuda):
     assert mrf_stage.launches - before == 2 * 2 * 6
     assert torch.equal(got_len.cpu(), want_len)
     assert (got.cpu() - want).abs().max().item() <= 2e-4
+
+
+def test_mrf_kernel_refuses_to_drop_a_gradient(cuda):
+    """K1 has no backward: with autograd recording and an input or weight
+    that requires grad it raises; under no_grad it runs."""
+    gen = torch.Generator().manual_seed(1)
+    stage = [[(w.to(cuda), b.to(cuda)) for w, b in br]
+             for br in _stage(8, "2", gen)]
+    h = torch.randn(1, 40, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf_stage(h.clone().requires_grad_(True), stage, "2", KERNEL_SIZES,
+                  DILATIONS)
+    stage[0][0][0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf_stage(h, stage, "2", KERNEL_SIZES, DILATIONS)
+    with torch.no_grad():
+        mrf_stage(h, stage, "2", KERNEL_SIZES, DILATIONS)
+
+
+def _mas_case(seed, b, t_spec, t_text, ragged):
+    gen = torch.Generator().manual_seed(seed)
+    neg_cent = torch.randn(b, t_spec, t_text, generator=gen) * 3
+    if ragged:
+        t_ys = torch.randint(t_text, t_spec + 1, (b,), generator=gen)
+        t_xs = torch.minimum(
+            torch.randint(1, t_text + 1, (b,), generator=gen), t_ys)
+    else:
+        t_ys, t_xs = torch.full((b,), t_spec), torch.full((b,), t_text)
+    mask = ((torch.arange(t_spec)[None, :, None] < t_ys[:, None, None])
+            & (torch.arange(t_text)[None, None, :] < t_xs[:, None, None]))
+    return neg_cent, mask.float()
+
+
+@pytest.mark.parametrize("b,t_spec,t_text,ragged", [
+    (3, 40, 17, False), (6, 64, 23, True), (2, 9, 9, False),
+    (2, 1, 1, False), (32, 400, 64, True), (32, 1000, 208, True),
+    (2, 900, 700, True),  # T_text beyond one block: the strided loop
+    (1, 20000, 40, True),  # decision bits in the scratch buffer
+])
+def test_mas_kernel_equals_plain(cuda, b, t_spec, t_text, ragged):
+    """K2 against the plain version on the same inputs: exactly equal."""
+    neg_cent, mask = _mas_case(t_spec, b, t_spec, t_text, ragged)
+    neg_cent, mask = neg_cent.to(cuda), mask.to(cuda)
+    before = maximum_path.launches
+    got = maximum_path(neg_cent, mask)
+    torch.cuda.synchronize()
+    assert maximum_path.launches - before == 1
+    assert not got.requires_grad
+    assert torch.equal(got, maximum_path_reference(neg_cent, mask))
+
+
+def test_mas_kernel_with_ties_and_an_empty_mask(cuda):
+    """Integer scores make equal candidates common (the strict `<` decides);
+    an all-zero mask clamps the lengths to 1."""
+    neg_cent, mask = _mas_case(5, 8, 120, 50, True)
+    neg_cent = torch.round(neg_cent / 3).to(cuda)
+    mask = mask.to(cuda)
+    mask[3] = 0
+    got = maximum_path(neg_cent, mask)
+    assert torch.equal(got, maximum_path_reference(neg_cent, mask))
+    assert not got[3].any()
+
+
+def test_train_step_on_gpu_matches_cpu(cuda):
+    """One training step on the GPU (K2 in the forward, the differentiable
+    MRF route in the decoder) against the CPU, same seeded weights, draws
+    fixed and dropout off: the alignment exactly equal, losses within rel
+    1e-3 (checked inside the smoke script's phase, which raises)."""
+    result = phase_train_reference()
+    assert result["max_rel_err"] <= 1e-3
+    assert result["attn_frames"] == 24 + 21

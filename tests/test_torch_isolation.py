@@ -40,6 +40,15 @@ PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (main() is not run)
+    expected = [
+        "ops.mas", "ops.spectral", "ops.random", "ops.masking",
+        "models.discriminators", "models.encoders", "models.duration",
+        "train.losses", "train.state", "train.step", "train.checkpoint",
+        "train.trainer", "data.dataset", "data.sampler", "utils.wav",
+        "bin.train_vits"]
+    missing = [m for m in expected
+               if "wetts_tpu_torch." + m not in sys.modules]
+    assert not missing, missing
 
     leaked = [m for m in sys.modules if refused(m)
               or (m.split(".")[0] in ("jax", "jaxlib", "flax")
@@ -65,14 +74,28 @@ PROBE = textwrap.dedent("""
             pass
         else:
             raise AssertionError("engine without a GPU did not raise")
+        from wetts_tpu_torch.bin import train_vits
+        from wetts_tpu_torch.train.trainer import Trainer
+        for run in (lambda: Trainer(cfg, "unused", "unused", "unused"),
+                    lambda: train_vits.main(
+                        ["-c", "examples/baker/configs/v1.json", "-m",
+                         sys.argv[1], "--train_data", "unused",
+                         "--phone_table", "unused"])):
+            try:
+                run()
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise AssertionError("trainer without a GPU did not raise")
     print("OK", len(names))
 """)
 
 
-def test_port_imports_no_jax_and_needs_a_gpu():
+def test_port_imports_no_jax_and_needs_a_gpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", PROBE, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 20  # every module of the package was imported
+    assert n_modules >= 36  # every module of the package was imported

@@ -22,7 +22,7 @@ from wetts_tpu.models.synthesizer import Synthesizer as JaxSynthesizer
 from wetts_tpu.utils.convert import convert_synthesizer
 from wetts_tpu.utils.params_io import save_params_npz
 from wetts_tpu_torch.config import Config
-from wetts_tpu_torch.utils.convert import SKIPPED_SUBTREES, params_from_jax
+from wetts_tpu_torch.utils.convert import params_from_jax
 from wetts_tpu_torch.utils.params_io import load_params_npz
 
 
@@ -62,15 +62,13 @@ def test_infer_matches_jax(overrides):
 def test_weight_bridge_round_trip():
     """port state_dict -> convert_synthesizer -> params_from_jax gives back
     the same tensors, and convert_synthesizer maps every port tensor onto
-    exactly the JAX tree (minus the posterior encoder the port lacks)."""
+    exactly the JAX tree, the posterior encoder included."""
     cfg = small_cfg_dict()
     _, params = jax_synthesizer(cfg)
     port = port_synthesizer(cfg, params)
     state = {k: v.numpy() for k, v in port.state_dict().items()}
-    tree = convert_synthesizer(state, JaxConfig.from_dict(copy.deepcopy(cfg)),
-                               subset=True)  # subset: the port has no enc_q
-    want = {p: a for p, a in _leaves(params["params"])
-            if p[0] not in SKIPPED_SUBTREES}
+    tree = convert_synthesizer(state, JaxConfig.from_dict(copy.deepcopy(cfg)))
+    want = dict(_leaves(params["params"]))
     got = dict(_leaves(tree))
     assert set(got) == set(want)
     for p, a in want.items():

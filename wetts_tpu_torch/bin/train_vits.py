@@ -1,0 +1,54 @@
+"""VITS training entry (port of wetts_tpu/bin/train_vits.py; the reference's
+CLI, wetts/vits/utils/task.py:172-237): JSON config + manifests + phone and
+speaker tables.
+
+Usage:
+    python -m wetts_tpu_torch.bin.train_vits -c config.json -m exp/v1 \
+        --train_data data/train.txt --val_data data/val.txt \
+        --phone_table data/phones.txt --speaker_table data/speaker.txt
+
+Runs on the GPU and raises without one; `--device cpu` asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="train VITS (PyTorch/CUDA)")
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("-m", "--model_dir", required=True)
+    p.add_argument("--train_data", required=True)
+    p.add_argument("--val_data", default=None)
+    p.add_argument("--phone_table", required=True)
+    p.add_argument("--speaker_table", default=None)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="accepted for reference-CLI compatibility")
+    p.add_argument("--device", default=None,
+                   help="cuda (default; raises without a GPU) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = get_args(argv)
+
+    from wetts_tpu_torch.config import Config
+    from wetts_tpu_torch.train.trainer import Trainer
+
+    cfg = Config.from_json(args.config)
+    os.makedirs(args.model_dir, exist_ok=True)
+    # copy config into the run dir for reproducibility (task.py:211-216)
+    shutil.copyfile(args.config,
+                    os.path.join(args.model_dir, "config.json"))
+    trainer = Trainer(cfg, args.model_dir, args.train_data,
+                      args.phone_table, args.speaker_table, args.val_data,
+                      device=args.device)
+    trainer.train(max_steps=args.max_steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,10 @@ for the VITS1 text encoder; reference wetts/vits/model/attentions.py).
 MultiHeadAttention with learned relative-position embeddings (window 4,
 heads shared), the rel<->abs index shuffles (:302-358) and the -1e4 mask fill
 (:262); FFN with "same" conv padding and relu; the post-norm Encoder.
-Activations are [B, C, T]; scores are f32.
+Activations are [B, C, T]; scores are f32. Dropout (`p_dropout`) sits where
+the JAX modules have it: on the attention weights, after the FFN's relu,
+and on each residual branch of the Encoder; it is active in train() mode
+only and draws from the caller's generator (ops/random.py).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wetts_tpu_torch.models.layers import Conv1d, Dense, LayerNorm
+from wetts_tpu_torch.ops import random
 
 
 def _relative_to_absolute(x: torch.Tensor) -> torch.Tensor:
@@ -49,10 +53,11 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with shared relative-position embeddings."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = 4):
+                 window_size: Optional[int] = 4, p_dropout: float = 0.0):
         super().__init__()
         assert channels % n_heads == 0
         self.n_heads = n_heads
+        self.p_dropout = p_dropout
         self.k_channels = channels // n_heads
         self.window_size = window_size
         self.conv_q = Dense(channels, channels)
@@ -64,8 +69,8 @@ class MultiHeadAttention(nn.Module):
             self.emb_rel_k = nn.Parameter(torch.zeros(1, n, self.k_channels))
             self.emb_rel_v = nn.Parameter(torch.zeros(1, n, self.k_channels))
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, C, T]; attn_mask [B, 1, T, T] (1 = attend)."""
         b, c, t = x.shape
         h, d = self.n_heads, self.k_channels
@@ -83,7 +88,8 @@ class MultiHeadAttention(nn.Module):
             scores = scores + _relative_to_absolute(
                 q @ key_rel.transpose(-2, -1)[:, None])
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p_attn = torch.softmax(scores, dim=-1)
+        p_attn = random.dropout(torch.softmax(scores, dim=-1),
+                                self.p_dropout, self.training, generator)
         out = p_attn @ v
         if self.window_size is not None:
             value_rel = _slice_relative_embeddings(self.emb_rel_v, t,
@@ -97,9 +103,11 @@ class FFN(nn.Module):
     :373-429)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
+        self.p_dropout = p_dropout
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
 
@@ -108,8 +116,10 @@ class FFN(nn.Module):
             return x
         return F.pad(x, ((self.kernel_size - 1) // 2, self.kernel_size // 2))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = torch.relu(self.conv_1(self._pad(x * x_mask)))
+        x = random.dropout(x, self.p_dropout, self.training, generator)
         return self.conv_2(self._pad(x * x_mask)) * x_mask
 
 
@@ -118,27 +128,36 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: Optional[int] = 4):
+                 window_size: Optional[int] = 4, p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.attn_layers = nn.ModuleList()
         self.norm_layers_1 = nn.ModuleList()
         self.ffn_layers = nn.ModuleList()
         self.norm_layers_2 = nn.ModuleList()
         for _ in range(n_layers):
             self.attn_layers.append(MultiHeadAttention(
-                hidden_channels, hidden_channels, n_heads, window_size))
+                hidden_channels, hidden_channels, n_heads, window_size,
+                p_dropout))
             self.norm_layers_1.append(LayerNorm(hidden_channels))
             self.ffn_layers.append(FFN(hidden_channels, hidden_channels,
-                                       filter_channels, kernel_size))
+                                       filter_channels, kernel_size,
+                                       p_dropout))
             self.norm_layers_2.append(LayerNorm(hidden_channels))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, C, T]; x_mask [B, 1, T]."""
         attn_mask = x_mask[:, :, :, None] * x_mask[:, :, None, :]
         x = x * x_mask
+
+        def drop(y):
+            return random.dropout(y, self.p_dropout, self.training,
+                                  generator)
+
         for attn, norm1, ffn, norm2 in zip(
                 self.attn_layers, self.norm_layers_1, self.ffn_layers,
                 self.norm_layers_2):
-            x = norm1(x + attn(x, attn_mask))
-            x = norm2(x + ffn(x, x_mask))
+            x = norm1(x + drop(attn(x, attn_mask, generator)))
+            x = norm2(x + drop(ffn(x, x_mask, generator)))
         return x * x_mask

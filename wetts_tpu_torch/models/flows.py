@@ -1,7 +1,10 @@
 """The VITS1 prior flow (port of wetts_tpu/models/flows.py, VITS1 only;
 reference wetts/vits/model/flows.py:457-516 and modules.py:98-106):
 mean-only affine couplings over channel halves interleaved with flips.
-The VITS2 transformer flows are a later slice."""
+Both directions are differentiable and masked as the JAX package masks
+them. A mean-only coupling has log-det 0 and the KL loss uses none, so
+neither direction returns one. The VITS2 transformer flows are a later
+slice."""
 
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from wetts_tpu_torch.models.wavenet import WN
 class Flip(nn.Module):
     """Parameterless flip of the channel axis."""
 
-    def forward(self, x, x_mask, g=None, reverse=False):
+    def forward(self, x, x_mask, g=None, reverse=False, generator=None):
         return torch.flip(x, dims=[1])
 
 
@@ -36,12 +39,13 @@ class ResidualCouplingLayer(nn.Module):
                            self.half_channels * (2 - mean_only), 1)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None, reverse: bool = False
-                ) -> torch.Tensor:
-        """x [B, C, T]. Returns the coupled x; the forward log-det is not
-        needed for inference and is not computed."""
+                g: Optional[torch.Tensor] = None, reverse: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, C, T]. Returns the coupled x (the log-det of a mean-only
+        coupling is 0 and is not returned)."""
         x0, x1 = torch.split(x, self.half_channels, dim=1)
-        h = self.enc(self.pre(x0) * x_mask, x_mask, g=g)
+        h = self.enc(self.pre(x0) * x_mask, x_mask, g=g,
+                     generator=generator)
         stats = self.post(h) * x_mask
         if self.mean_only:
             m, logs = stats, torch.zeros_like(stats)
@@ -69,9 +73,9 @@ class ResidualCouplingBlock(nn.Module):
             self.flows.append(Flip())
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None, reverse: bool = False
-                ) -> torch.Tensor:
+                g: Optional[torch.Tensor] = None, reverse: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         flows = reversed(self.flows) if reverse else self.flows
         for flow in flows:
-            x = flow(x, x_mask, g=g, reverse=reverse)
+            x = flow(x, x_mask, g=g, reverse=reverse, generator=generator)
         return x

@@ -6,8 +6,20 @@ weight-normed ConvTranspose upsample -> MRF stage (the mean of the resblock
 branches) -> leaky_relu(0.01, torch's default, decoders.py:78) ->
 conv_post(7, no bias) -> tanh.
 
-Every MRF stage goes through `mrf.mrf_stage`, which launches kernel K1 on the
-GPU. conv_pre, cond, the upsample convs and conv_post lay outside any Pallas
+The MRF stages take one of two routes, chosen by whether a gradient is
+wanted and by nothing else (never by whether the kernel built or launched):
+
+- inference (eval mode and autograd not recording into the decoder): every
+  stage goes through `mrf.mrf_stage`, which launches kernel K1 on the GPU
+  with the folded weights;
+- training (`train()` mode, or autograd recording with an input or parameter
+  that requires grad): every stage runs `mrf.mrf_stage_reference`, the
+  differentiable F.conv1d chain, on kernels computed from
+  `weight_g`/`weight_v`. K1 has no backward, as the Pallas kernel it replaces
+  has no VJP and the JAX package pins its differentiable path on the
+  training route.
+
+conv_pre, cond, the upsample convs and conv_post lay outside any Pallas
 kernel in the JAX package and stay F.conv1d / F.conv_transpose1d.
 """
 
@@ -25,7 +37,12 @@ from wetts_tpu_torch.models.layers import (
     ConvTranspose1d,
     get_padding,
 )
-from wetts_tpu_torch.models.mrf import Branch, check_stage, mrf_stage
+from wetts_tpu_torch.models.mrf import (
+    Branch,
+    check_stage,
+    mrf_stage,
+    mrf_stage_reference,
+)
 
 
 def _forget_stages(module: "Generator", _incompatible_keys) -> None:
@@ -54,6 +71,12 @@ class ResBlock1(nn.Module):
             out += [(c1.weight, c1.bias), (c2.weight, c2.bias)]
         return out
 
+    def live_convs(self) -> Branch:
+        out = []
+        for c1, c2 in zip(self.convs1, self.convs2):
+            out += [(c1.kernel(), c1.bias), (c2.kernel(), c2.bias)]
+        return out
+
 
 class ResBlock2(nn.Module):
     """Parameters of one ResBlock2 branch: one dilated conv per dilation."""
@@ -68,6 +91,9 @@ class ResBlock2(nn.Module):
 
     def folded_convs(self) -> Branch:
         return [(c.weight, c.bias) for c in self.convs]
+
+    def live_convs(self) -> Branch:
+        return [(c.kernel(), c.bias) for c in self.convs]
 
 
 class Generator(nn.Module):
@@ -124,15 +150,34 @@ class Generator(nn.Module):
         self._checked_stages = None
         return super()._apply(fn, *args, **kwargs)
 
+    def gradient_wanted(self, x: torch.Tensor) -> bool:
+        """Whether the decoder must be differentiable for this call: in
+        train() mode (where the folded buffers may be stale), or when
+        autograd is recording and `x` or a parameter requires grad."""
+        return self.training or (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad
+                                   for p in self.parameters())))
+
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         x = self.conv_pre(x)
         if g is not None and hasattr(self, "cond"):
             x = x + self.cond(g)
-        for up, stage in zip(self.ups, self.checked_stages()):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
-            h = mrf_stage(x.transpose(1, 2).contiguous(), stage, self.resblock,
-                          self.kernel_sizes, self.dilations, checked=True)
-            x = h.transpose(1, 2)
+        n = len(self.kernel_sizes)
+        if self.gradient_wanted(x):
+            for i, up in enumerate(self.ups):
+                x = up(F.leaky_relu(x, LRELU_SLOPE))
+                stage = [rb.live_convs()
+                         for rb in self.resblocks[i * n:(i + 1) * n]]
+                x = mrf_stage_reference(
+                    x.transpose(1, 2), stage, self.resblock,
+                    self.kernel_sizes, self.dilations).transpose(1, 2)
+        else:
+            for up, stage in zip(self.ups, self.checked_stages()):
+                x = up(F.leaky_relu(x, LRELU_SLOPE))
+                h = mrf_stage(x.transpose(1, 2).contiguous(), stage,
+                              self.resblock, self.kernel_sizes,
+                              self.dilations, checked=True)
+                x = h.transpose(1, 2)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)

@@ -6,11 +6,20 @@ state_dict names and shapes (torch Conv1d `weight` [O, I, K],
 ConvTranspose1d `weight` [I, O, K], LayerNorm `gamma`/`beta`), and a
 weight-normed conv keeps `weight_g`/`weight_v`.
 
-The port is inference only, so weight norm is folded once into a plain
-kernel (`weight`, a non-persistent buffer) whenever the parameters are
-loaded, with the same arithmetic as the JAX package:
+Weight norm has one arithmetic, that of the JAX package:
 `v * (g / max(||v||, 1e-12))`, the norm per output channel of a conv and
-per input channel of a transposed conv (torch weight_norm dim=0).
+per input channel of a transposed conv (torch weight_norm dim=0), and two
+routes to it (`WeightNormed.kernel`):
+
+- where a gradient is wanted (the module is in `train()` mode, or autograd
+  is recording and `weight_v`/`weight_g` require grad) the kernel is
+  computed from the two parameters inside `forward`, so both learn;
+- otherwise (inference) the module uses `weight`, a non-persistent buffer
+  that holds the folded kernel. The buffer is refolded whenever the
+  parameters can have changed under it: when a state_dict is loaded, and
+  whenever the module enters eval mode (`eval()` / `train(False)`). So after
+  optimiser steps, `model.eval()` is what brings the inference path, and the
+  CUDA kernels that read the buffer by pointer, up to date.
 """
 
 from __future__ import annotations
@@ -48,9 +57,13 @@ def _refold(module: nn.Module, _incompatible_keys) -> None:
 class WeightNormed(nn.Module):
     """Holds `weight_g`/`weight_v` and their folded `weight`."""
 
+    weight_norm = False
+
     def _init_weight(self, shape, g_len: int, weight_norm: bool):
+        self.weight_norm = weight_norm
         if weight_norm:
-            self.weight_g = nn.Parameter(torch.zeros(g_len, 1, 1))
+            self.weight_g = nn.Parameter(
+                torch.zeros(g_len, *([1] * (len(shape) - 1))))
             self.weight_v = nn.Parameter(torch.zeros(shape))
             self.register_buffer("weight", torch.zeros(shape),
                                  persistent=False)
@@ -61,8 +74,25 @@ class WeightNormed(nn.Module):
     @torch.no_grad()
     def fold_(self) -> None:
         """Recompute the folded kernel from weight_g/weight_v."""
-        if hasattr(self, "weight_v"):
+        if self.weight_norm:
             self.weight.copy_(fold_weight_norm(self.weight_v, self.weight_g))
+
+    def train(self, mode: bool = True):
+        """Entering eval mode refolds the inference buffer."""
+        super().train(mode)
+        if not mode:
+            self.fold_()
+        return self
+
+    def kernel(self) -> torch.Tensor:
+        """The convolution kernel: differentiable in weight_g/weight_v where
+        a gradient is wanted, the folded buffer otherwise."""
+        if self.weight_norm and (self.training or (
+                torch.is_grad_enabled()
+                and (self.weight_v.requires_grad
+                     or self.weight_g.requires_grad))):
+            return fold_weight_norm(self.weight_v, self.weight_g)
+        return self.weight
 
 
 class Conv1d(WeightNormed):
@@ -72,16 +102,18 @@ class Conv1d(WeightNormed):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, padding: int = 0, dilation: int = 1,
                  groups: int = 1, bias: bool = True,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, stride: int = 1):
         super().__init__()
         self.padding, self.dilation, self.groups = padding, dilation, groups
+        self.stride = stride
         self._init_weight((out_channels, in_channels // groups, kernel_size),
                           out_channels, weight_norm)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.weight, self.bias, padding=self.padding,
-                        dilation=self.dilation, groups=self.groups)
+        return F.conv1d(x, self.kernel(), self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups)
 
 
 class Dense(Conv1d):
@@ -107,8 +139,27 @@ class ConvTranspose1d(WeightNormed):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.weight, self.bias,
+        return F.conv_transpose1d(x, self.kernel(), self.bias,
                                   stride=self.stride, padding=self.padding)
+
+
+class Conv2d(WeightNormed):
+    """torch.nn.Conv2d on [B, C, H, W] with a (k, 1) kernel, stride (s, 1)
+    and padding (p, 0): the period discriminator's convolution. weight
+    [O, I, k, 1]; weight norm per out-channel (`weight_g` [O, 1, 1, 1])."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 weight_norm: bool = False):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self._init_weight((out_channels, in_channels, kernel_size, 1),
+                          out_channels, weight_norm)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.kernel(), self.bias, stride=(self.stride, 1),
+                        padding=(self.padding, 0))
 
 
 class LayerNorm(nn.Module):

@@ -11,7 +11,12 @@ with T the length of the tensor.
   stage) and counts each launch in `mrf_stage.launches`; on a CPU tensor it
   runs the plain version. It never falls back from the kernel.
 - `mrf_stage_reference` is the plain PyTorch version, the eager ResBlock
-  chain through F.conv1d, and the kernel's oracle on the card.
+  chain through F.conv1d, and the kernel's oracle on the card. It is also
+  the differentiable route: the kernel has no backward (as the TPU kernel
+  has no VJP), so `mrf_stage` raises on a CUDA tensor when autograd is
+  recording and its input or a weight requires grad, and a caller that
+  wants gradients (`hifigan.Generator` in training) calls the plain
+  version itself.
 
 The kernel does the stage's whole arithmetic itself (no cuDNN, cuBLAS or
 torch.matmul): the leaky relu is fused into its input load, and the bias,
@@ -133,6 +138,13 @@ def mrf_stage(h: torch.Tensor, stage: Sequence[Branch], resblock_kind: str,
         raise ValueError(f"the MRF kernel takes f32, C % 4 == 0 and kernel "
                          f"sizes in {KERNEL_TAPS}; got {h.dtype}, C={c}, "
                          f"kernel sizes {tuple(kernel_sizes)}")
+    if torch.is_grad_enabled() and (h.requires_grad or any(
+            w.requires_grad or bias.requires_grad
+            for convs in stage for w, bias in convs)):
+        raise RuntimeError(
+            "the MRF kernel has no backward: where a gradient is wanted, "
+            "call mrf_stage_reference (Generator.forward does so itself); "
+            "for inference run under torch.no_grad()")
     h = h.contiguous()
 
     lib = _library()

@@ -1,6 +1,9 @@
-"""VITS synthesizer, inference side (port of wetts_tpu/models/synthesizer.py;
-reference wetts/vits/model/models.py:14-377).
+"""VITS synthesizer (port of wetts_tpu/models/synthesizer.py; reference
+wetts/vits/model/models.py:14-377).
 
+forward (:161-226) is the training pass: text encoder -> posterior encoder
+-> flow -> monotonic alignment search (no gradient, kernel K2 on the GPU) ->
+duration loss -> prior expansion -> random segment slice -> decoder.
 infer (:228-280): duration sampling -> generate_path -> flow reverse ->
 decoder, with the noise_scale / length_scale / noise_scale_w semantics, split
 at z into encode_infer and decode for streaming callers (:282-363). As in the
@@ -9,15 +12,15 @@ realized lengths are clipped to it, and callers trim to them.
 
 The public functions keep the JAX package's layout: phone ids [B, T_text],
 latents and masks [B, T, C], the speaker vector g [B, 1, gin], audio
-[B, T * hop, 1]. Inside, modules run on [B, C, T]. Every noise draw takes an
-explicit `torch.Generator`. The posterior encoder (training, voice
-conversion) is a later slice.
+[B, T * hop, 1], spectrograms [B, T_spec, bins]. Inside, modules run on
+[B, C, T]. Every noise draw takes an explicit `torch.Generator`. Voice
+conversion and the noise-scaled MAS of VITS2 are later slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,10 +30,16 @@ from wetts_tpu_torch.models.duration import (
     DurationPredictor,
     StochasticDurationPredictor,
 )
-from wetts_tpu_torch.models.encoders import TextEncoder
+from wetts_tpu_torch.models.encoders import PosteriorEncoder, TextEncoder
 from wetts_tpu_torch.models.flows import ResidualCouplingBlock
 from wetts_tpu_torch.models.hifigan import Generator
-from wetts_tpu_torch.ops.masking import generate_path, sequence_mask
+from wetts_tpu_torch.ops import random
+from wetts_tpu_torch.ops.mas import maximum_path
+from wetts_tpu_torch.ops.masking import (
+    generate_path,
+    rand_slice_segments,
+    sequence_mask,
+)
 
 
 def _bct(x: torch.Tensor) -> torch.Tensor:
@@ -50,18 +59,26 @@ class Synthesizer(nn.Module):
                 f"use_transformer_flows={m.use_transformer_flows}, "
                 f"use_spk_conditioned_encoder="
                 f"{m.use_spk_conditioned_encoder})")
+        if m.use_noise_scaled_mas:
+            raise NotImplementedError(
+                "noise-scaled MAS (VITS2) is not ported yet")
         self.n_speakers = cfg.num_speakers
         self.use_sdp = m.use_sdp
         self.hop = math.prod(m.upsample_rates)
+        self.segment_size = cfg.train.segment_size // cfg.data.hop_length
         gin = m.gin_channels
         self.enc_p = TextEncoder(cfg.num_phones, m.inter_channels,
                                  m.hidden_channels, m.filter_channels,
-                                 m.n_heads, m.n_layers, m.kernel_size)
+                                 m.n_heads, m.n_layers, m.kernel_size,
+                                 p_dropout=m.p_dropout)
         self.dec = Generator(m.inter_channels, m.resblock,
                              m.resblock_kernel_sizes,
                              m.resblock_dilation_sizes, m.upsample_rates,
                              m.upsample_initial_channel,
                              m.upsample_kernel_sizes, gin_channels=gin)
+        self.enc_q = PosteriorEncoder(cfg.data.spec_channels,
+                                      m.inter_channels, m.hidden_channels,
+                                      5, 1, 16, gin_channels=gin)
         self.flow = ResidualCouplingBlock(m.inter_channels, m.hidden_channels,
                                           5, 1, 4, gin_channels=gin)
         if m.use_sdp:
@@ -79,6 +96,70 @@ class Synthesizer(nn.Module):
         if self.n_speakers > 0 and sid is not None:
             return self.emb_g(sid)[:, None, :]
         return None
+
+    def forward(self, x, x_lengths, y, y_lengths, sid=None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """Training forward.
+
+        x: [B, T_text] phone ids; y: [B, T_spec, spec_channels]. Returns the
+        decoder slice, the duration loss, the alignment, masks and flow
+        statistics under the JAX package's keys and layouts.
+        """
+        g = self._speaker(sid)
+        g_in = None if g is None else _bct(g)
+        x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, generator)
+        z, m_q, logs_q, y_mask = self.enc_q(_bct(y), y_lengths, g=g_in,
+                                            generator=generator)
+        z_p = self.flow(z, y_mask, g=g_in, generator=generator)
+
+        # MAS, no gradients (reference :171-194); [B, T_spec, T_text]
+        with torch.no_grad():
+            s_p_sq_r = torch.exp(-2.0 * logs_p)  # [B, C, T_text]
+            zp_t = _bct(z_p)  # [B, T_spec, C]
+            neg_cent1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p,
+                                  dim=1)[:, None, :]
+            neg_cent2 = torch.matmul(-0.5 * zp_t ** 2, s_p_sq_r)
+            neg_cent3 = torch.matmul(zp_t, m_p * s_p_sq_r)
+            neg_cent4 = torch.sum(-0.5 * m_p ** 2 * s_p_sq_r,
+                                  dim=1)[:, None, :]
+            neg_cent = neg_cent1 + neg_cent2 + neg_cent3 + neg_cent4
+            attn_mask = _bct(y_mask) * x_mask  # [B, T_spec, T_text]
+            attn = maximum_path(neg_cent, attn_mask)
+
+        w = attn.sum(dim=1)[:, None, :]  # [B, 1, T_text]
+        logw_ = torch.log(w + 1e-6) * x_mask
+        if self.use_sdp:
+            l_length = self.dp.nll(x_h, x_mask, w, g=g_in,
+                                   generator=generator) / torch.sum(x_mask)
+            logw = self.dp(x_h, x_mask, g=g_in, noise_scale=1.0,
+                           generator=generator)
+        else:
+            logw = self.dp(x_h, x_mask, g=g_in, generator=generator)
+            l_length = torch.sum((logw - logw_) ** 2,
+                                 dim=(1, 2)) / torch.sum(x_mask)
+
+        # expand the prior over spec frames (reference :209-212)
+        m_p_e = torch.matmul(attn, _bct(m_p))  # [B, T_spec, C]
+        logs_p_e = torch.matmul(attn, _bct(logs_p))
+
+        z_t = _bct(z)
+        z_slice, ids_slice = rand_slice_segments(
+            z_t, y_lengths, self.segment_size, generator)
+        o = self.dec(_bct(z_slice), g=g_in)
+        return {
+            "audio": _bct(o),
+            "l_length": l_length,
+            "attn": attn,
+            "ids_slice": ids_slice,
+            "x_mask": _bct(x_mask),
+            "y_mask": _bct(y_mask),
+            "z": z_t, "z_p": _bct(z_p), "m_p": m_p_e,
+            "logs_p": logs_p_e,
+            "m_q": _bct(m_q), "logs_q": _bct(logs_q),
+            "x_hidden": _bct(x_h), "logw": _bct(logw), "logw_": _bct(logw_),
+            "g": g,
+        }
 
     def encode_prior(self, x, x_lengths, sid=None, noise_scale=1.0,
                      length_scale=1.0, noise_scale_w=1.0,
@@ -105,8 +186,8 @@ class Synthesizer(nn.Module):
         attn = generate_path(w_ceil, path_mask)  # [B, T_text, T_spec]
         m_p_e = m_p @ attn  # [B, C, T_spec]
         logs_p_e = logs_p @ attn
-        noise = torch.randn(m_p_e.shape, generator=generator,
-                            device=m_p_e.device, dtype=m_p_e.dtype)
+        noise = random.normal(m_p_e.shape, m_p_e.device, m_p_e.dtype,
+                              generator)
         z_p = m_p_e + noise * torch.exp(logs_p_e) * noise_scale
         return _bct(z_p), y_lengths, y_mask, attn, g
 

@@ -1,7 +1,8 @@
 """WaveNet residual stack WN (port of wetts_tpu/models/wavenet.py; reference
 wetts/vits/model/modules.py:10-95): dilated weight-normed convs with the
 gated tanh/sigmoid activation, speaker conditioning projected once to
-2*H*n_layers channels, and the residual/skip split."""
+2*H*n_layers channels, and the residual/skip split. The dropout site on the
+gated activations is kept (`p_dropout`, 0 in every VITS use)."""
 
 from __future__ import annotations
 
@@ -15,12 +16,15 @@ from wetts_tpu_torch.models.layers import (
     fused_add_tanh_sigmoid_multiply,
     get_padding,
 )
+from wetts_tpu_torch.ops import random
 
 
 class WN(nn.Module):
     def __init__(self, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, n_layers: int, gin_channels: int = 0):
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         assert kernel_size % 2 == 1
         self.hidden_channels = hidden_channels
         self.n_layers = n_layers
@@ -41,7 +45,8 @@ class WN(nn.Module):
                                                weight_norm=True))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+                g: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, H, T]; x_mask [B, 1, T]; g [B, gin, 1] or None."""
         h = self.hidden_channels
         output = torch.zeros_like(x)
@@ -52,7 +57,10 @@ class WN(nn.Module):
             x_in = in_layer(x)
             g_l = (g_all[:, i * 2 * h: (i + 1) * 2 * h] if g_all is not None
                    else torch.zeros_like(x_in))
-            rs = res_skip(fused_add_tanh_sigmoid_multiply(x_in, g_l, h))
+            acts = random.dropout(
+                fused_add_tanh_sigmoid_multiply(x_in, g_l, h),
+                self.p_dropout, self.training, generator)
+            rs = res_skip(acts)
             if i < self.n_layers - 1:
                 x = (x + rs[:, :h]) * x_mask
                 output = output + rs[:, h:]

@@ -1,7 +1,9 @@
-"""The weight bridge: flax param trees -> the port's state_dict.
+"""The weight bridge: flax param trees -> the port's state_dicts.
 
 `params_from_jax(tree, cfg)` is the inverse of
-`wetts_tpu.utils.convert.convert_synthesizer`: it takes a flax param tree of
+`wetts_tpu.utils.convert.convert_synthesizer`, and
+`discriminator_from_jax(tree)` of `convert_discriminator` (the multi-period
+discriminator). `params_from_jax` takes a flax param tree of
 numpy arrays (for example from `utils/params_io.load_params_npz`) and returns
 a state_dict in the reference `SynthesizerTrn`'s names and layouts, which the
 port's modules keep. Layout rules (the inverse of convert.py's table):
@@ -11,13 +13,15 @@ port's modules keep. Layout rules (the inverse of convert.py's table):
 | Conv1d kernel/v [K, I, O]     | weight/weight_v [O, I, K]                |
 | Dense kernel [I, O]           | weight [O, I, 1] (reference 1x1 Conv1d)  |
 | ConvTranspose kernel/v [I,O,K]| weight/weight_v [I, O, K] (unchanged)    |
-| g [O] / [I]                   | weight_g [O, 1, 1] / [I, 1, 1]           |
+| Conv2d kernel/v [Kh, Kw, I, O]| weight/weight_v [O, I, Kh, Kw]           |
+| g [O] / [I]                   | weight_g [O, 1, 1] / [I, 1, 1] / [O,1,1,1]|
 | ln/scale, ln/bias             | gamma, beta                              |
 | emb, emb_g/embedding          | emb.weight, emb_g.weight                 |
 | ElementwiseAffine m/logs [C]  | m/logs [C, 1]                            |
 
-Every leaf of the tree must map, except the posterior encoder (`enc_q`),
-which the inference port does not hold; an unmapped leaf raises.
+Every leaf of the tree must map; an unmapped leaf raises. The other
+direction needs no code here: the port keeps the reference's state_dict
+names, so the JAX package's own converters read the port's state_dicts.
 """
 
 from __future__ import annotations
@@ -28,9 +32,6 @@ import numpy as np
 import torch
 
 Path = Tuple[str, ...]
-
-# top-level subtrees the inference port does not hold
-SKIPPED_SUBTREES = ("enc_q",)
 
 
 def _join(prefix: str, name: str) -> str:
@@ -78,11 +79,14 @@ class FlaxToTorch:
             to_torch = lambda k: k  # noqa: E731  torch layout already
         else:
             to_torch = lambda k: (  # noqa: E731
-                k.T[:, :, None] if k.ndim == 2 else k.transpose(2, 1, 0))
+                k.T[:, :, None] if k.ndim == 2
+                else k.transpose(2, 1, 0) if k.ndim == 3
+                else k.transpose(3, 2, 0, 1))  # Conv2d HWIO -> OIHW
         if "v" in node:
             self.put(_join(prefix, "weight_v"), path + ("v",), to_torch)
+            ones = (1,) * (np.ndim(node["v"]) - 1)
             self.put(_join(prefix, "weight_g"), path + ("g",),
-                     lambda g: g.reshape(-1, 1, 1))
+                     lambda g: g.reshape(-1, *ones))
         else:
             self.put(_join(prefix, "weight"), path + ("kernel",), to_torch)
         if "bias" in node:
@@ -163,9 +167,12 @@ class FlaxToTorch:
                         self.conv(rb + (f"conv_{k}",), f"{tname}.convs.{k}")
         self.conv(path + ("conv_post",), _join(prefix, "conv_post"))
 
-    def unused(self, skip=()) -> list:
-        return ["/".join(p) for p in _leaves(self.tree)
-                if p not in self._used and p[0] not in skip]
+    def check_all_used(self) -> None:
+        leftovers = ["/".join(p) for p in _leaves(self.tree)
+                     if p not in self._used]
+        if leftovers:
+            raise ValueError(f"unmapped flax params: {leftovers[:10]}"
+                             f" (+{max(0, len(leftovers) - 10)} more)")
 
 
 def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
@@ -180,6 +187,9 @@ def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
     m.put("enc_p.emb.weight", ("enc_p", "emb"))
     m.encoder(("enc_p", "encoder"), "enc_p.encoder", mc.n_layers)
     m.conv(("enc_p", "proj"), "enc_p.proj")
+    m.conv(("enc_q", "pre"), "enc_q.pre")
+    m.wn(("enc_q", "enc"), "enc_q.enc", 16)
+    m.conv(("enc_q", "proj"), "enc_q.proj")
     for i in range(4):
         m.coupling(("flow", f"flow_{i}"), f"flow.flows.{2 * i}", 4)
     if mc.use_sdp:
@@ -202,8 +212,24 @@ def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
     m.generator(("dec",), "dec", cfg)
     if "emb_g" in tree:
         m.put("emb_g.weight", ("emb_g", "embedding"))
-    leftovers = m.unused(skip=SKIPPED_SUBTREES)
-    if leftovers:
-        raise ValueError(f"unmapped flax params: {leftovers[:10]}"
-                         f" (+{max(0, len(leftovers) - 10)} more)")
+    m.check_all_used()
+    return m.state
+
+
+def discriminator_from_jax(tree: Dict, periods=(2, 3, 5, 7, 11)
+                           ) -> Dict[str, torch.Tensor]:
+    """Flax MultiPeriodDiscriminator params -> the port's state_dict
+    (`discriminators.0` the scale discriminator, then one per period)."""
+    tree = tree.get("params", tree)
+    m = FlaxToTorch(tree)
+    for i in range(6):
+        m.conv(("disc_s", f"conv_{i}"), f"discriminators.0.convs.{i}")
+    m.conv(("disc_s", "conv_post"), "discriminators.0.conv_post")
+    for idx, p in enumerate(periods, start=1):
+        for i in range(5):
+            m.conv((f"disc_p_{p}", f"conv_{i}"),
+                   f"discriminators.{idx}.convs.{i}")
+        m.conv((f"disc_p_{p}", "conv_post"),
+               f"discriminators.{idx}.conv_post")
+    m.check_all_used()
     return m.state
