@@ -6,29 +6,43 @@
 Phases, each of which must pass (any failure exits non-zero):
 1. print the card's name and power limit; build every CUDA kernel of the
    port from `wetts_tpu_torch/csrc/` (one nvcc per source, all at once);
-2. hold kernel K1 (`mrf_stage`) against its plain PyTorch version at the
-   four VITS-base MRF stage shapes of a batch of 4 at the 352-frame decode
-   bucket, f32 with TF32 off, and time both; time the model's three
-   synthesis stages at the same bucket;
-3. synthesize 16 batches of 4 raw-phone requests of about 4 s of audio
-   each with `SynthesisEngine` on the GPU at the full width of
+2. hold kernel K1 (`mrf_stage`), in f32 (TF32 off) and in bf16, against its
+   plain PyTorch version at the four VITS-base MRF stage shapes of a batch
+   of 4 at the 352-frame decode bucket, and time both; time the model's
+   three synthesis stages at the same bucket;
+3. hold the int8 kernels (row scale, dilated conv, transposed conv, a whole
+   int8 MRF stage) against their plain versions at the same shapes in bf16:
+   the integer sums are exact on both sides, so a single launch agrees to
+   the rounding of the output type;
+4. hold K3 (`matmul_chain`, 16 dependent [8192, 1024] x [1024, 1024]
+   products) against its plain version, int8 exactly and bf16 within a
+   stated bound, and run the probe that times both chains, beside the same
+   hops through `torch._int_mm` / `torch.matmul` (timed here only);
+5. the serving main path, once per precision (f32, bf16 = `half`, int8 =
+   `quantize`): batches of 4 raw-phone requests of about 4 s of audio each
+   through `SynthesisEngine` on the GPU at the full width of
    examples/baker/configs/v1.json (seeded random weights, a synthetic phone
-   table, 4 speakers), and report all the audio over all the wall time;
-4. serve 3 HTTP requests through `TtsServer` on 127.0.0.1 and shut it down;
-5. check the GPU's audio against the plain path on the CPU on a small input;
-6. hold kernel K2 (`maximum_path`, monotonic alignment search) exactly equal
+   table, 4 speakers), all the audio over all the wall time; then 3 HTTP
+   requests through `TtsServer` on 127.0.0.1 (on the f32 and on the int8
+   engine). The reduced engines must give the f32 engine's lengths and its
+   audio within the JAX package's own drift bounds;
+6. check each precision's GPU audio against the plain path on the CPU on a
+   small input;
+7. hold kernel K2 (`maximum_path`, monotonic alignment search) exactly equal
    to its plain PyTorch version at the shapes v1 training produces, and time
    both;
-7. train: write a seeded synthetic corpus (64 noise-like utterances of
+8. train: write a seeded synthetic corpus (64 noise-like utterances of
    3.5-11 s, 4 speakers) to a temporary directory, build `Trainer` from
    v1.json as it stands (batch 32, segment 8192, f32) with seeded random
-   weights, take 1 warm-up and 6 timed steps, save, resume in a second
+   weights, take 1 warm-up and 4 timed steps, save, resume in a second
    `Trainer` and take one more; check metrics, moved parameters and the
    first step's alignment, and split one step's device time by phase;
-8. check one training step on the GPU against the CPU at a small size.
-Phases 3 and 4 are the serving main path and phase 7 the training main path:
-each kernel's launch count is zeroed just before its path and read just
-after (K1 must not move while training, K2 launches once per step). The
+9. check one training step on the GPU against the CPU at a small size.
+Phase 5 is the serving main path, phase 8 the training main path and the
+probe of phase 4 K3's own: each kernel's launch count is zeroed just before
+its path and read just after (under `half` every MRF stage goes through
+K1's bf16 instance and no int8 kernel runs; under `quantize` it is the
+reverse; K1 must not move while training, K2 launches once per step). The
 last two lines are the kernels JSON and the device JSON. Imports nothing of
 JAX; needs a CUDA device.
 """
@@ -55,18 +69,22 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "baker", "configs", "v1.json")
-KERNELS = ("mrf_stage", "mas")
-# H100 SXM published peaks at the 700 W limit (NVIDIA data sheet)
+KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_chain")
+# H100 SXM published peaks at the 700 W limit (NVIDIA data sheet), dense
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 BATCH, FRAME_BUCKET = 4, 352
 N_PHONES, N_SPEAKERS, SEED = 64, 4, 1234
-SYNTH_BATCHES = 16  # of BATCH ~4 s requests: a window of a few seconds
+# batches of BATCH ~4 s requests per precision: a window of a second or so
+SYNTH_BATCHES = {"f32": 8, "bf16": 16, "int8": 16}
+BF16_ULP = 2.0 ** -8
 # K2 at the [B, T_spec, T_text] shapes v1 training produces (batch 32, frame
 # buckets up to 1000, text padded to a multiple of 16), a 1x1 and a square
 MAS_SHAPES = ((32, 400, 64), (32, 700, 128), (32, 1000, 208), (2, 1, 1),
               (4, 48, 48))
-TRAIN_UTTERANCES, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 64, 1, 6
+TRAIN_UTTERANCES, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 64, 1, 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -87,62 +105,318 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def stage_cost(b: int, t: int, c: int, kernel_sizes, dilations, kind):
-    """(flops, bytes) one MRF stage must do and move: 2*C*C*k per conv tap
-    per sample; input and output read and written once, weights once."""
+def one_tile_ms(stage_fn, h: torch.Tensor) -> float:
+    """A stage's time on 128 samples of one row, a single tile per launch:
+    the launches, the gaps between them and one block's latency from start
+    to end, with no parallel work to hide them. Divided by the launches it
+    bounds the gap between two launches from above."""
+    tiny = h[:1, :128].contiguous()
+    return cuda_ms(lambda: stage_fn(tiny), 20)
+
+
+def stage_cost(b: int, t: int, c: int, kernel_sizes, dilations, kind,
+               act_bytes: int = 4, weight_bytes: int = 4):
+    """(operations, bytes) one MRF stage must do and move: 2*C*C*k per conv
+    tap per sample; input and output read and written once, weights once."""
     from wetts_tpu_torch.models.mrf import convs_per_branch
 
     taps = sum(k * convs_per_branch(kind, d)
                for k, d in zip(kernel_sizes, dilations))
     n_convs = sum(convs_per_branch(kind, d) for d in dilations)
     flops = 2 * c * c * taps * b * t
-    nbytes = 4 * (2 * b * t * c + c * c * taps + c * n_convs)
+    nbytes = (act_bytes * 2 * b * t * c + weight_bytes * c * c * taps
+              + act_bytes * c * n_convs)
     return flops, nbytes
 
 
+def conv_dilations(kind: str, dils) -> list:
+    """The dilation of each conv of a resblock branch, in execution order."""
+    return [d for dil in dils for d in ((dil, 1) if kind == "1" else (dil,))]
+
+
+def stage_shapes(gen_cfg):
+    """(stage, T, C) of the four MRF stages at the decode bucket."""
+    t = FRAME_BUCKET
+    for i, u in enumerate(gen_cfg.upsample_rates):
+        t *= u
+        yield i, t, gen_cfg.upsample_initial_channel // 2 ** (i + 1)
+
+
 @torch.no_grad()
-def phase_kernels(model, gen_cfg):
-    """K1 against its plain version at the v1 stage shapes (inference: K1
-    has no backward and refuses inputs that record a gradient)."""
+def phase_kernels(model, gen_cfg, dtype=torch.float32):
+    """K1 against its plain version at the v1 stage shapes, in f32 or in
+    bf16 (inference: K1 has no backward and refuses inputs that record a
+    gradient)."""
     from wetts_tpu_torch.models.mrf import mrf_stage, mrf_stage_reference
 
     kind = gen_cfg.resblock
     ks = tuple(gen_cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in gen_cfg.resblock_dilation_sizes)
-    rows, t = [], FRAME_BUCKET
+    bf16 = dtype == torch.bfloat16
+    rows = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for i, u in enumerate(gen_cfg.upsample_rates):
-        t *= u
-        c = gen_cfg.upsample_initial_channel // 2 ** (i + 1)
-        stage = model.dec.stage_convs(i)
-        h = torch.randn(BATCH, t, c, device="cuda", generator=gen)
+    for i, t, c in stage_shapes(gen_cfg):
+        stage = (model.dec.reduced("bf16").stages[i] if bf16
+                 else model.dec.stage_convs(i))
+        h = torch.randn(BATCH, t, c, device="cuda", generator=gen).to(dtype)
         got = mrf_stage(h, stage, kind, ks, ds)
         want = mrf_stage_reference(h, stage, kind, ks, ds)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = max(1.0, want.abs().max().item())
-        check(bool(torch.isfinite(got).all()), f"stage {i}: non-finite")
-        # f32 sums of up to C*k = 2816 products, taken in another order
-        check(err <= 1e-4 * scale,
-              f"stage {i}: max |kernel - plain| {err} > 1e-4 * {scale}")
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        check(bool(torch.isfinite(got).all()) and got.dtype == dtype,
+              f"stage {i}: non-finite or of another type")
+        # f32: sums of up to C*k = 2816 products taken in another order.
+        # bf16: f32 sums on both sides, but the kernel rounds once after
+        # bias and residual where the plain chain rounds after each, over 3
+        # residual convs per branch: within 8 bf16 ulps of max |plain|
+        tol = (8 * BF16_ULP if bf16 else 1e-4) * scale
+        check(err <= tol, f"stage {i} {dtype}: max |kernel - plain| {err} > "
+                          f"{tol}")
         ms = cuda_ms(lambda: mrf_stage(h, stage, kind, ks, ds), 5)
         plain_ms = cuda_ms(lambda: mrf_stage_reference(h, stage, kind, ks, ds),
                            3)
-        flops, nbytes = stage_cost(BATCH, t, c, ks, ds, kind)
-        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        nb = 2 if bf16 else 4
+        flops, nbytes = stage_cost(BATCH, t, c, ks, ds, kind, nb, nb)
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
         row = {"stage": i, "B": BATCH, "T": t, "C": c, "max_abs_err": err,
                "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "gflop": flops / 1e9,
-               "tflops": flops / ms / 1e9}
-        print("K1 stage " + json.dumps(row))
+               "tflops": flops / ms / 1e9,
+               "one_tile_ms": one_tile_ms(
+                   lambda x: mrf_stage(x, stage, kind, ks, ds), h)}
+        print(("K1-bf16 stage " if bf16 else "K1 stage ") + json.dumps(row))
         rows.append(row)
     return rows
 
 
-def phase_model_stages(model, rows):
+def _ulps(got, want) -> float:
+    """max |got - want| in units of the output type's spacing at
+    max(1, max |want|), per batch row (rows have their own scales)."""
+    ulp = BF16_ULP if want.dtype == torch.bfloat16 else 2.0 ** -23
+    worst = 0.0
+    for g, w in zip(got.float(), want.float()):
+        scale = max(1.0, w.abs().max().item())
+        worst = max(worst, (g - w).abs().max().item() / (ulp * scale))
+    return worst
+
+
+@torch.no_grad()
+def phase_int8_kernels(model, gen_cfg):
+    """The int8 kernels against their plain versions at the v1 shapes, in
+    bf16 as the serving path runs them. The integer sums are exact on both
+    sides (the plain version takes them in float64), so one conv agrees to
+    the rounding of bf16: at most 2 ulps of the row's max |plain| are
+    allowed, 1 is expected. Over a whole stage a one-ulp difference can move
+    a later conv's quantised input by one of its 127 steps, so the stage is
+    held to 1 / 127 of max |plain|."""
+    from wetts_tpu_torch.models.mrf import (
+        mrf_stage_int8,
+        mrf_stage_int8_reference,
+    )
+    from wetts_tpu_torch.models.layers import LRELU_SLOPE
+    from wetts_tpu_torch.models.quant import (
+        int8_conv1d,
+        int8_conv1d_reference,
+        int8_conv_transpose1d,
+        int8_conv_transpose1d_reference,
+        row_scale,
+        row_scale_reference,
+        upsample_scale_per_phase,
+    )
+    import torch.nn.functional as F
+
+    kind = gen_cfg.resblock
+    ks = tuple(gen_cfg.resblock_kernel_sizes)
+    ds = tuple(tuple(d) for d in gen_cfg.resblock_dilation_sizes)
+    red = model.dec.reduced("int8")
+    per_phase = upsample_scale_per_phase(
+        gen_cfg.upsample_initial_channel, gen_cfg.upsample_rates,
+        FRAME_BUCKET)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {"stage": [], "conv": [], "up": [], "scale": []}
+    t_in = FRAME_BUCKET
+    for i, t, c in stage_shapes(gen_cfg):
+        # ---- the upsample into this stage: [B, t_in, 2C] -> [B, t, C]
+        up = red.quantized_up(model.dec, i, per_phase[i])
+        x = torch.randn(BATCH, t_in, 2 * c, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        x[1] *= 0.01  # a quiet row beside the loud ones
+        got = int8_conv_transpose1d(x, up, LRELU_SLOPE)
+        want = int8_conv_transpose1d_reference(x, up, LRELU_SLOPE)
+        ulps = _ulps(got, want)
+        check(got.shape == (BATCH, t, c) and ulps <= 2.0,
+              f"int8 upsample {i}: {ulps} ulps from the plain version")
+        w_f = model.dec.ups[i].weight.to(torch.bfloat16)
+        xt = x.transpose(1, 2).contiguous()
+        ops = 2 * BATCH * t_in * 2 * c * c * up.taps
+        nbytes = 2 * BATCH * (t_in * 2 * c + t * c) + up.wq.numel()
+        row = {"stage": i, "T_in": t_in, "C_in": 2 * c, "C_out": c,
+               "k": up.taps, "u": up.stride, "per_phase": per_phase[i],
+               "ulps": ulps,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "ms": cuda_ms(lambda: int8_conv_transpose1d(
+                   x, up, LRELU_SLOPE), 10),
+               "plain_ms": cuda_ms(lambda: int8_conv_transpose1d_reference(
+                   x, up, LRELU_SLOPE), 1),
+               "library_ms": cuda_ms(lambda: F.conv_transpose1d(
+                   xt, w_f, stride=up.stride, padding=up.padding), 10),
+               "bound_ms": 1e3 * max(ops / PEAK_INT8_OPS,
+                                     nbytes / PEAK_BYTES),
+               "gop": ops / 1e9}
+        print("Q2 upsample " + json.dumps(row))
+        out["up"].append(row)
+        t_in = t
+
+        # ---- the row scale and the widest conv (k = 11, dilation 5)
+        h = torch.randn(BATCH, t, c, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        h[1] *= 0.01
+        check(torch.equal(row_scale(h, LRELU_SLOPE),
+                          row_scale_reference(h, LRELU_SLOPE)),
+              f"row scale at stage {i} differs from the plain version")
+        row = {"stage": i, "T": t, "C": c, "max_abs_err": 0.0,
+               "ms": cuda_ms(lambda: row_scale(h, LRELU_SLOPE), 20),
+               "plain_ms": cuda_ms(lambda: row_scale_reference(
+                   h, LRELU_SLOPE), 5),
+               "bound_ms": 1e3 * 2 * h.numel() / PEAK_BYTES}
+        print("Q0 row scale " + json.dumps(row))
+        out["scale"].append(row)
+        conv = red.stages[i][-1][4]  # conv1 of dilation 5, 11 taps
+        got = int8_conv1d(h, conv, 5, LRELU_SLOPE)
+        want = int8_conv1d_reference(h, conv, 5, LRELU_SLOPE)
+        ulps = _ulps(got, want)
+        check(ulps <= 2.0, f"int8 conv at stage {i}: {ulps} ulps from the "
+                           f"plain version")
+        w_f = model.dec.stage_convs(i)[-1][4][0].to(torch.bfloat16)
+        ht = h.transpose(1, 2).contiguous()
+        ops = 2 * BATCH * t * c * c * conv.taps
+        ms = cuda_ms(lambda: int8_conv1d(h, conv, 5, LRELU_SLOPE), 10)
+        row = {"stage": i, "T": t, "C": c, "k": conv.taps, "dilation": 5,
+               "ulps": ulps,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "ms_with_scale": ms,
+               "library_ms": cuda_ms(lambda: F.conv1d(
+                   ht, w_f, padding=25, dilation=5), 10),
+               "gop": ops / 1e9, "tops_with_scale": ops / ms / 1e9}
+        print("Q1 conv " + json.dumps(row))
+        out["conv"].append(row)
+
+        # ---- the whole int8 stage: 18 scale and 18 conv launches
+        stage = red.stages[i]
+        got = mrf_stage_int8(h, stage, kind, ds)
+        want = mrf_stage_int8_reference(h, stage, kind, ds)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err <= scale / 127.0,
+              f"int8 stage {i}: max |kernel - plain| {err} > {scale} / 127")
+        ops, nbytes = stage_cost(BATCH, t, c, ks, ds, kind, 2, 1)
+        # the cuDNN bf16 convolutions of the same stage, one F.conv1d per
+        # conv and nothing else: the library's time for the products
+        convs = [(w.to(torch.bfloat16), k, d)
+                 for branch, k, dils in zip(model.dec.stage_convs(i), ks, ds)
+                 for (w, _), d in zip(branch, conv_dilations(kind, dils))]
+
+        def library():
+            for w, k, d in convs:
+                F.conv1d(ht, w, padding=(k - 1) * d // 2, dilation=d)
+
+        ms = cuda_ms(lambda: mrf_stage_int8(h, stage, kind, ds), 5)
+        row = {"stage": i, "B": BATCH, "T": t, "C": c, "max_abs_err": err,
+               "max_abs_plain": scale, "ms": ms,
+               "plain_ms": cuda_ms(lambda: mrf_stage_int8_reference(
+                   h, stage, kind, ds), 1),
+               "library_ms": cuda_ms(library, 3),
+               "bound_ms": 1e3 * max(ops / PEAK_INT8_OPS,
+                                     nbytes / PEAK_BYTES),
+               "gop": ops / 1e9, "tops": ops / ms / 1e9,
+               "one_tile_ms": one_tile_ms(
+                   lambda x: mrf_stage_int8(x, stage, kind, ds), h)}
+        print("Q1 int8 stage " + json.dumps(row))
+        out["stage"].append(row)
+    return out
+
+
+@torch.no_grad()
+def phase_chain():
+    """K3: both chains against their plain version at the probe's shapes,
+    then the probe itself, which is K3's own path (its launches are counted
+    over the probe alone), and the same hops through the library's products
+    with PyTorch requantisation between them, timed here only."""
+    from wetts_tpu_torch.ops.int8_chain import (
+        HOPS,
+        matmul_chain,
+        matmul_chain_reference,
+    )
+    from wetts_tpu_torch.tools import probe_int8
+
+    m, k = probe_int8.M, probe_int8.K
+    ops = 2 * m * k * k * HOPS
+    out = {}
+    for name, dtype, peak in (("bf16", torch.bfloat16, PEAK_BF16_FLOPS),
+                              ("int8", torch.int8, PEAK_INT8_OPS)):
+        a, w = probe_int8.chain_inputs(dtype)
+        got = matmul_chain(a, w)
+        want = matmul_chain_reference(a, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if dtype == torch.int8:
+            check(torch.equal(got, want), f"int8 chain differs from the "
+                                          f"plain version (max {err})")
+        else:
+            # f32 sums in another order, rounded to bf16 after every hop: a
+            # sum near a rounding boundary lands one bf16 step apart and the
+            # later hops spread it; within 2 ** -5 of max |plain|
+            check(bool(torch.isfinite(got).all())
+                  and err <= 2.0 ** -5 * scale,
+                  f"bf16 chain: max |kernel - plain| {err} > {scale} / 32")
+        nbytes = (2 * a.numel() + w.numel()) * a.element_size()
+        out[name] = {
+            "max_abs_err": err, "max_abs_plain": scale,
+            "plain_ms": cuda_ms(lambda: matmul_chain_reference(a, w), 2),
+            "bound_ms": 1e3 * max(ops / peak, nbytes / PEAK_BYTES)}
+
+    # the library's products, requantised by PyTorch between the hops
+    def library_int8(a, w):
+        for _ in range(HOPS):
+            a = torch.clamp(torch._int_mm(a, w) >> 10, -127, 127).to(
+                torch.int8)
+        return a
+
+    def library_bf16(a, w):
+        for _ in range(HOPS):
+            a = (torch.matmul(a, w).float() * (1.0 / 32.0)).to(
+                torch.bfloat16)
+        return a
+
+    a8, w8 = probe_int8.chain_inputs(torch.int8)
+    check(torch.equal(library_int8(a8, w8), matmul_chain(a8, w8)),
+          "torch._int_mm's chain differs from K3's")
+    out["int8"]["library_ms"] = cuda_ms(lambda: library_int8(a8, w8), 5)
+    a16, w16 = probe_int8.chain_inputs(torch.bfloat16)
+    out["bf16"]["library_ms"] = cuda_ms(lambda: library_bf16(a16, w16), 5)
+
+    # ---- K3's own path: the probe's timing of each chain, the count
+    # zeroed just before it and read just after
+    for name, (a, w) in (("bf16", (a16, w16)), ("int8", (a8, w8))):
+        matmul_chain.launches = 0
+        ms = probe_int8.time_chain(lambda: matmul_chain(a, w))
+        out[name]["launches"] = matmul_chain.launches
+        out[name]["ms"] = ms
+        out[name]["tera_ops_per_s"] = probe_int8.chain_rate(ms)
+    out["int8_speedup"] = out["bf16"]["ms"] / out["int8"]["ms"]
+    print("K3 chain " + json.dumps(out))
+    return out
+
+
+def phase_model_stages(model, mrf_ms: dict):
     """Device time of the three synthesis stages for a batch of 4 at the
-    64-phone text bucket and the 352-frame decode bucket, and K1's share of
-    the decode (its four stages from phase 2, at the same shapes)."""
+    64-phone text bucket and the 352-frame decode bucket, flow and decode
+    at each precision, and the MRF stages' share of each decode (their time
+    from the kernel phases, at the same shapes)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randint(1, N_PHONES, (BATCH, 64), device="cuda", generator=gen)
     xl = torch.full((BATCH,), 64, device="cuda")
@@ -152,15 +426,17 @@ def phase_model_stages(model, rows):
                                              generator=gen)
         z_p = z_p[:, :FRAME_BUCKET]
         mask = torch.ones(BATCH, FRAME_BUCKET, 1, device="cuda")
-        z = model.flow_reverse(z_p, mask, g)
-        out = {
-            "encode_prior_ms": cuda_ms(lambda: model.encode_prior(
-                x, xl, sid, max_frames=768, generator=gen), 3),
-            "flow_reverse_ms": cuda_ms(
-                lambda: model.flow_reverse(z_p, mask, g), 3),
-            "decode_ms": cuda_ms(lambda: model.decode(z, g), 3),
-        }
-    out["k1_share_of_decode"] = sum(r["ms"] for r in rows) / out["decode_ms"]
+        out = {"encode_prior_ms": cuda_ms(lambda: model.encode_prior(
+            x, xl, sid, max_frames=768, generator=gen), 3)}
+        for precision, ms in mrf_ms.items():
+            z = model.flow_reverse(z_p, mask, g, precision)
+            out[precision] = {
+                "flow_reverse_ms": cuda_ms(lambda: model.flow_reverse(
+                    z_p, mask, g, precision), 3),
+                "decode_ms": cuda_ms(lambda: model.decode(
+                    z, g, precision=precision), 3)}
+            out[precision]["mrf_share_of_decode"] = \
+                ms / out[precision]["decode_ms"]
     return out
 
 
@@ -193,7 +469,7 @@ def random_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def build_engine(cfg):
+def build_engine(cfg, **options):
     from wetts_tpu_torch.models.synthesizer import Synthesizer
     from wetts_tpu_torch.serving.engine import SynthesisEngine
 
@@ -203,7 +479,7 @@ def build_engine(cfg):
     # random weights predict about one frame per phone; length_scale 5
     # brings durations near real speech's (~6 frames of 11.6 ms per phone)
     engine = SynthesisEngine(cfg, model, phone2id, speakers, seed=SEED,
-                             length_scale=5.0)
+                             length_scale=5.0, **options)
     check(engine.device == torch.device("cuda"), "engine not on cuda")
     return engine
 
@@ -244,12 +520,15 @@ def phase_synthesis(engine, batches):
         check(bool(np.isfinite(a).all()) and float(np.abs(a).max()) > 0,
               "audio not finite or all zero")
     seconds = sum(a.size for a in audios) / engine.sample_rate
-    return {"requests": len(audios), "batch": BATCH, "audio_s": seconds,
-            "mean_request_audio_s": seconds / len(audios), "wall_s": wall,
-            "audio_s_per_s": seconds / wall,
-            "batch_ms_p50": float(np.median(batch_ms)),
-            "batch_ms_min": min(batch_ms), "batch_ms_max": max(batch_ms),
-            "frame_buckets": {str(k): v for k, v in sorted(buckets.items())}}
+    return audios, {"requests": len(audios), "batch": BATCH,
+                    "audio_s": seconds,
+                    "mean_request_audio_s": seconds / len(audios),
+                    "wall_s": wall, "audio_s_per_s": seconds / wall,
+                    "batch_ms_p50": float(np.median(batch_ms)),
+                    "batch_ms_min": min(batch_ms),
+                    "batch_ms_max": max(batch_ms),
+                    "frame_buckets": {str(k): v
+                                      for k, v in sorted(buckets.items())}}
 
 
 def phase_serving(engine, rng):
@@ -278,23 +557,35 @@ def phase_serving(engine, rng):
 
 
 def phase_reference(engine):
-    """The GPU path against the plain path on the CPU, same weights and
-    input, deterministic scales (0, 1, 0); f32 on both sides, TF32 off."""
+    """The GPU path against the plain path on the CPU at the engine's
+    precision, same weights and input, deterministic scales (0, 1, 0). f32:
+    both sides f32 with TF32 off, within the CPU parity tests' 2e-4. bf16
+    and int8: bf16 glue on both sides, rounded at other places by the
+    kernels, cuDNN and the CPU's convolutions, so within the JAX package's
+    own drift bound for a reduced decoder (3e-2 on the tanh-bounded wave)
+    and correlation above 0.99."""
+    precision = engine.precision
     x = torch.arange(1, 13)[None] % (N_PHONES - 1) + 1
     xl = torch.tensor([12])
     sid = torch.tensor([1])
     cpu_model = copy.deepcopy(engine.model).cpu()
     with torch.inference_mode():
-        want, wl, _ = cpu_model.infer(x, xl, sid, 0.0, 1.0, 0.0, 64)
+        want, wl, _ = cpu_model.infer(x, xl, sid, 0.0, 1.0, 0.0, 64,
+                                      precision=precision)
         got, gl, _ = engine.model.infer(x.cuda(), xl.cuda(), sid.cuda(),
-                                        0.0, 1.0, 0.0, 64)
+                                        0.0, 1.0, 0.0, 64,
+                                        precision=precision)
     check(torch.equal(gl.cpu(), wl), f"y_lengths {gl.tolist()} vs {wl.tolist()}")
-    err = (got.cpu() - want).abs().max().item()
-    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
-          "GPU audio not finite or misshapen")
-    # f32 on both sides; 2e-4 is the CPU parity tests' audio tolerance
-    check(err <= 2e-4, f"GPU vs CPU audio max diff {err}")
-    return {"y_len": gl.tolist(), "max_abs_err": err}
+    got = got.cpu()
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+          and got.dtype == torch.float32, "GPU audio not finite or misshapen")
+    corr = float(torch.corrcoef(torch.stack([got.flatten(),
+                                             want.flatten()]))[0, 1])
+    check(err <= (2e-4 if precision == "f32" else 3e-2) and corr > 0.99,
+          f"{precision}: GPU vs CPU audio max diff {err}, correlation {corr}")
+    return {"precision": precision, "y_len": gl.tolist(), "max_abs_err": err,
+            "correlation": corr, "max_abs_plain": want.abs().max().item()}
 
 
 def mas_inputs(b: int, t_spec: int, t_text: int, gen: torch.Generator):
@@ -637,12 +928,85 @@ def phase_train_reference():
             "attn_frames": int(got_attn.sum().item())}
 
 
+def serve_precision(cfg, name: str, options: dict, rng_seed: int,
+                    with_server: bool):
+    """The serving main path at one precision: a fresh engine (the same
+    seeded weights and noise stream every time), warm-up, then the batches
+    (and the HTTP requests) with every kernel's count zeroed just before
+    and read just after."""
+    from wetts_tpu_torch.models.mrf import mrf_stage
+    from wetts_tpu_torch.models.quant import (
+        int8_conv1d,
+        int8_conv_transpose1d,
+        row_scale,
+    )
+
+    counters = {"mrf_stage": mrf_stage, "int8_conv": int8_conv1d,
+                "int8_conv_transpose": int8_conv_transpose1d,
+                "int8_row_scale": row_scale}
+    engine = build_engine(cfg, **options)
+    check(engine.precision == name, f"engine precision {engine.precision}")
+    rng = np.random.default_rng(rng_seed)
+    # warm-up (cuDNN plans, allocator), then the main path's requests
+    engine.synthesize(phrase(rng, 10))
+    for ids, sids in utterance_batches(engine, rng, 2):
+        engine.synthesize_ids_batch(ids, sids)
+    batches = utterance_batches(engine, rng, SYNTH_BATCHES[name])
+    for fn in counters.values():
+        fn.launches = 0
+    engine.stage_times.reset()
+    audios, synth = phase_synthesis(engine, batches)
+    if with_server:
+        phase_serving(engine, rng)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    report = engine.stage_times.report()
+    n_decode = report["decode"]["n"]
+    m = cfg.model
+    mrf_convs = sum(len(conv_dilations(m.resblock, d))
+                    for d in m.resblock_dilation_sizes
+                    ) * len(m.upsample_rates)
+    ups = len(m.upsample_rates)
+    want = {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
+            "int8": (0, mrf_convs, ups, mrf_convs + ups)}[name]
+    for (key, got), per_decode in zip(launches.items(), want):
+        check(got == per_decode * n_decode,
+              f"{name}: {key} launched {got} times, not {per_decode} x "
+              f"{n_decode} decodes")
+    synth.update(precision=name, decodes=n_decode, launches=launches)
+    print("synthesis " + json.dumps(synth))
+    print(f"stage_times {name} " + json.dumps(
+        {k: {"n": v["n"], "mean_ms": v["mean_ms"], "p50_ms": v["p50_ms"]}
+         for k, v in report.items()}))
+    print("reference " + json.dumps(phase_reference(engine)))
+    return audios, synth, launches
+
+
+def compare_with_f32(name: str, audios, exact, corr_floor: float) -> dict:
+    """A reduced engine's requests against the f32 engine's on the same
+    seed: equal lengths (the duration path stays f32), and audio within the
+    JAX package's own bounds for its reduced decoders
+    (tests/test_hifigan_fast.py: max abs err < 3e-2 on the tanh-bounded
+    wave; correlation > 0.995 for bf16, > 0.99 for int8)."""
+    n = min(len(audios), len(exact))
+    check([a.size for a in audios[:n]] == [e.size for e in exact[:n]],
+          f"{name}: y_lengths differ from the f32 engine's")
+    err = max(float(np.abs(a - e).max()) for a, e in zip(audios, exact))
+    got, want = np.concatenate(audios[:n]), np.concatenate(exact[:n])
+    corr = float(np.corrcoef(got, want)[0, 1])
+    out = {"precision": name, "requests": n, "max_abs_err": err,
+           "correlation": corr, "max_abs_f32": float(np.abs(want).max())}
+    print("drift " + json.dumps(out))
+    check(err < 3e-2 and corr > corr_floor,
+          f"{name} audio drifts from f32: max abs err {err}, correlation "
+          f"{corr}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from wetts_tpu_torch.config import Config
-    from wetts_tpu_torch.models.mrf import convs_per_branch, mrf_stage
     from wetts_tpu_torch.utils import cuda_build
 
     # f32 throughout: cuDNN convolutions would otherwise run in TF32
@@ -659,73 +1023,95 @@ def main() -> int:
         list(pool.map(cuda_build.build, KERNELS))  # one nvcc each, together
     print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
-        for line in cuda_build.compiler_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        lines = [ln.strip() for ln in cuda_build.compiler_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        for line in sorted(set(lines)):
+            print(f"ptxas {name}: {line}")
 
     cfg = Config.from_json(CONFIG)
     cfg.num_phones, cfg.num_speakers = N_PHONES, N_SPEAKERS
     engine = build_engine(cfg)
     rows = phase_kernels(engine.model, cfg.model)
-    print("model_stages " + json.dumps(phase_model_stages(engine.model, rows)))
+    rows_bf16 = phase_kernels(engine.model, cfg.model, torch.bfloat16)
+    q = phase_int8_kernels(engine.model, cfg.model)
+    print("model_stages " + json.dumps(phase_model_stages(engine.model, {
+        "f32": sum(r["ms"] for r in rows),
+        "bf16": sum(r["ms"] for r in rows_bf16),
+        "int8": sum(r["ms"] for r in q["stage"])})))
+    del engine
+    torch.cuda.empty_cache()
+    chain = phase_chain()
 
-    rng = np.random.default_rng(SEED)
-    # warm-up (cuDNN plans, allocator), then the main path's requests
-    engine.synthesize(phrase(rng, 10))
-    for ids, sids in utterance_batches(engine, rng, 2):
-        engine.synthesize_ids_batch(ids, sids)
-    batches = utterance_batches(engine, rng, SYNTH_BATCHES)
-    mrf_stage.launches = 0
-    engine.stage_times.reset()
-    synth = phase_synthesis(engine, batches)
-    phase_serving(engine, rng)
-    launches = mrf_stage.launches
-    report = engine.stage_times.report()
-    n_decode = report["decode"]["n"]
-    per_decode = sum(convs_per_branch(cfg.model.resblock, d)
-                     for d in cfg.model.resblock_dilation_sizes
-                     ) * len(cfg.model.upsample_rates)
-    check(launches > 0, "K1 was not launched on the main path")
-    check(launches == per_decode * n_decode,
-          f"K1 launches {launches} != {per_decode} x {n_decode} decodes")
-    print("synthesis " + json.dumps(synth))
-    print("stage_times " + json.dumps(
-        {k: {"n": v["n"], "mean_ms": v["mean_ms"], "p50_ms": v["p50_ms"]}
-         for k, v in report.items()}))
-    print("reference " + json.dumps(phase_reference(engine)))
+    # ---- the serving main path, once per precision (same seeds each time)
+    exact, synth, launches = serve_precision(cfg, "f32", {}, SEED, True)
+    half, synth_bf16, launches_bf16 = serve_precision(
+        cfg, "bf16", {"half": True}, SEED, False)
+    quant, synth_int8, launches_int8 = serve_precision(
+        cfg, "int8", {"quantize": True}, SEED, True)
+    compare_with_f32("bf16", half, exact, 0.995)
+    compare_with_f32("int8", quant, exact, 0.99)
+    print("serving " + json.dumps({
+        s["precision"]: {"audio_s_per_s": s["audio_s_per_s"],
+                         "batch_ms_p50": s["batch_ms_p50"]}
+        for s in (synth, synth_bf16, synth_int8)}))
+    torch.cuda.empty_cache()
 
     mas_rows = phase_mas_kernel()
-    del engine  # the serving model's memory goes back before training
-    torch.cuda.empty_cache()
     training, train_launches = phase_training(cfg)
     print("training " + json.dumps(training))
     print("train_reference " + json.dumps(phase_train_reference()))
     v1_rows = [r for r in mas_rows if r["B"] == 32]
 
-    kernels = [{
-        "name": "mrf_stage", "route": "cuda",
-        "source": "wetts_tpu_torch/csrc/mrf_stage.cu",
-        "replaces": "wetts_tpu/models/mrf_pallas.py:172",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "operations",
-        "library_ms": None,
-    }, {
-        # ms, plain_ms and bound_ms: sums over the three v1 training shapes
-        "name": "mas", "route": "cuda",
-        "source": "wetts_tpu_torch/csrc/mas.cu",
-        "replaces": "wetts_tpu/ops/mas_pallas.py:81",
-        "launches": train_launches["mas"],
-        "max_abs_err": max(r["max_abs_err"] for r in mas_rows),
-        "ms": sum(r["ms"] for r in v1_rows),
-        "plain_ms": sum(r["plain_ms"] for r in v1_rows),
-        "bound_ms": sum(r["bound_ms"] for r in v1_rows),
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]
+    def total(rows_, key):
+        return sum(r[key] for r in rows_)
+
+    def kernel(name, source, replaces, n, rows_, bound_by, library=None,
+               ms_key="ms"):
+        return {"name": name, "route": "cuda",
+                "source": f"wetts_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(r["max_abs_err"] for r in rows_),
+                "ms": total(rows_, ms_key),
+                "plain_ms": total(rows_, "plain_ms"),
+                "bound_ms": total(rows_, "bound_ms"), "bound_by": bound_by,
+                "library_ms": library}
+
+    q8 = "wetts_tpu/models/hifigan_fast.py:147"
+    # ms, plain_ms and bound_ms are sums: K1 and the int8 stage over the four
+    # v1 MRF stages (18 convs each; the int8 stage with its 18 scale
+    # launches), the transposed conv over the four upsamples, the row scale
+    # over one call per stage shape, K2 over the three v1 training shapes
+    kernels = [
+        kernel("mrf_stage", "mrf_stage.cu",
+               "wetts_tpu/models/mrf_pallas.py:172", launches["mrf_stage"],
+               rows, "operations"),
+        kernel("mrf_stage_bf16", "mrf_stage.cu",
+               "wetts_tpu/models/mrf_pallas.py:172",
+               launches_bf16["mrf_stage"], rows_bf16, "operations"),
+        kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
+               train_launches["mas"], v1_rows, "bytes"),
+        kernel("int8_conv", "int8_conv.cu", q8, launches_int8["int8_conv"],
+               q["stage"], "operations", total(q["stage"], "library_ms")),
+        kernel("int8_conv_transpose", "int8_conv.cu", q8,
+               launches_int8["int8_conv_transpose"], q["up"], "operations",
+               total(q["up"], "library_ms")),
+        kernel("int8_row_scale", "int8_conv.cu",
+               "wetts_tpu/models/hifigan_fast.py:141",
+               launches_int8["int8_row_scale"], q["scale"], "bytes"),
+    ]
+    for name in ("int8", "bf16"):
+        c = chain[name]
+        kernels.append({
+            "name": f"int8_chain_{name}", "route": "cuda",
+            "source": "wetts_tpu_torch/csrc/int8_chain.cu",
+            "replaces": "tools/probe_int8_mxu.py:35",
+            "launches": c["launches"], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": "operations",
+            "library_ms": c["library_ms"]})
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on its "
+                                 f"main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

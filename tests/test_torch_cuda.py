@@ -1,7 +1,9 @@
-"""The kernels on the card: K1, the CUDA MRF kernel, against its plain
-PyTorch version at VITS-base stage shapes; K2, the CUDA monotonic alignment
-search, exactly equal to its plain version; and the port's synthesis and
-training step on the GPU against the CPU.
+"""The kernels on the card: K1, the CUDA MRF kernel (f32 and bf16), against
+its plain PyTorch version at VITS-base stage shapes; K2, the CUDA monotonic
+alignment search, exactly equal to its plain version; the int8 convolutions
+and the int8 MRF stage against their plain versions; K3, the int8 and bf16
+matrix chains; and the port's synthesis (f32, bf16, int8) and training step
+on the GPU against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -17,7 +19,27 @@ import torch
 
 from chip_smoke import phase_train_reference, random_init_
 from wetts_tpu_torch.config import Config
-from wetts_tpu_torch.models.mrf import mrf_stage, mrf_stage_reference
+from wetts_tpu_torch.models.mrf import (
+    mrf_stage,
+    mrf_stage_int8,
+    mrf_stage_int8_reference,
+    mrf_stage_reference,
+    quantize_stage,
+)
+from wetts_tpu_torch.models.quant import (
+    QuantConv1d,
+    QuantConvTranspose1d,
+    int8_conv1d,
+    int8_conv1d_reference,
+    int8_conv_transpose1d,
+    int8_conv_transpose1d_reference,
+    row_scale,
+    row_scale_reference,
+)
+from wetts_tpu_torch.ops.int8_chain import (
+    matmul_chain,
+    matmul_chain_reference,
+)
 from wetts_tpu_torch.models.synthesizer import Synthesizer
 from wetts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
 
@@ -180,3 +202,257 @@ def test_train_step_on_gpu_matches_cpu(cuda):
     result = phase_train_reference()
     assert result["max_rel_err"] <= 1e-3
     assert result["attn_frames"] == 24 + 21
+
+
+# ---------------------------------------------------------------------------
+# reduced precision: K1 in bf16, the int8 convolutions, K3
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8  # spacing of bf16 relative to a value's power of two
+
+
+def _close(got, want, ulps):
+    """max |got - want| <= ulps * ulp(type) * max(1, max |want|)."""
+    ulp = BF16_ULP if want.dtype == torch.bfloat16 else 2.0 ** -23
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ulps * ulp * scale, (err, ulps * ulp * scale)
+
+
+@pytest.mark.parametrize("c,t", [(256, 768), (64, 12288), (32, 24576),
+                                 (40, 1001)])
+@pytest.mark.parametrize("kind", ["1", "2"])
+def test_mrf_kernel_bf16_matches_plain(cuda, c, t, kind):
+    """K1's bf16 instance (bf16 in, weights and out, f32 sums) against the
+    plain version in bf16 (cuDNN, f32 sums, a rounding after every conv):
+    the kernel rounds after bias and residual at once, the plain version
+    after each, and a stage chains 3 residual convs per branch, so within 8
+    bf16 ulps of max |plain|."""
+    gen = torch.Generator().manual_seed(c)
+    stage = [[(w.to(cuda, torch.bfloat16), b.to(cuda, torch.bfloat16))
+              for w, b in br] for br in _stage(c, kind, gen)]
+    h = torch.randn(2, t, c, generator=gen).to(cuda, torch.bfloat16)
+    before = mrf_stage.launches
+    got = mrf_stage(h, stage, kind, KERNEL_SIZES, DILATIONS)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert mrf_stage.launches - before == 9 * (2 if kind == "1" else 1)
+    _close(got, mrf_stage_reference(h, stage, kind, KERNEL_SIZES, DILATIONS),
+           8)
+
+
+def test_mrf_kernel_refuses_mixed_types_and_a_gradient_in_bf16(cuda):
+    gen = torch.Generator().manual_seed(2)
+    stage32 = [[(w.to(cuda), b.to(cuda)) for w, b in br]
+               for br in _stage(8, "2", gen)]
+    h = torch.randn(1, 40, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # bf16 activations, f32 weights
+        mrf_stage(h, stage32, "2", KERNEL_SIZES, DILATIONS)
+    stage = [[(w.bfloat16(), b.bfloat16()) for w, b in br] for br in stage32]
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf_stage(h.clone().requires_grad_(True), stage, "2", KERNEL_SIZES,
+                  DILATIONS)
+    qstage = quantize_stage(stage32, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf_stage_int8(h.float().requires_grad_(True), qstage, "2", DILATIONS)
+    with torch.no_grad():
+        mrf_stage(h, stage, "2", KERNEL_SIZES, DILATIONS)
+
+
+def _rows(b, t, c, gen, dtype):
+    """Activations with a loud row, a quiet row and a row of zeros (whose
+    scale hits the 1e-12 floor)."""
+    x = torch.randn(b, t, c, generator=gen)
+    x[0] *= 100.0
+    x[1] *= 0.01
+    if b > 2:
+        x[2] = 0.0
+    return x.to("cuda", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_scale_equals_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(3)
+    x = _rows(4, 1001, 32, gen, dtype)
+    before = row_scale.launches
+    for slope in (None, 0.1):
+        assert torch.equal(row_scale(x, slope), row_scale_reference(x, slope))
+    assert row_scale.launches - before == 2
+    assert row_scale(x)[2].item() == pytest.approx(1e-12 / 127.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,k,d,t", [
+    (32, 32, 3, 1, 1001), (32, 32, 11, 5, 777), (512, 512, 3, 5, 300),
+    (64, 64, 7, 3, 129), (128, 256, 11, 1, 500), (96, 40, 5, 2, 260)])
+def test_int8_conv_matches_plain(cuda, dtype, c_in, c_out, k, d, t):
+    """The int32 sums are exact on both sides, so kernel and plain version
+    differ only where they round f32 to the output type: within 1 ulp of
+    the type at max |plain| (2 allowed)."""
+    gen = torch.Generator().manual_seed(c_in + k)
+    w = torch.randn(c_out, c_in, k, generator=gen) / (c_in * k) ** 0.5
+    conv = QuantConv1d(w.to(cuda), (torch.randn(c_out, generator=gen)
+                                    * 0.1).to(cuda), dtype)
+    x = _rows(3, t, c_in, gen, dtype)
+    before = int8_conv1d.launches, row_scale.launches
+    got = int8_conv1d(x, conv, d, 0.1)
+    torch.cuda.synchronize()
+    assert (int8_conv1d.launches - before[0],
+            row_scale.launches - before[1]) == (1, 1)
+    want = int8_conv1d_reference(x, conv, d, 0.1)
+    assert not got[2].float().abs().max().item() > \
+        conv.bias.float().abs().max().item()  # the zero row: bias alone
+    for row in range(3):  # each row at its own magnitude
+        _close(got[row], want[row], 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_store_modes(cuda, dtype):
+    gen = torch.Generator().manual_seed(5)
+    w = torch.randn(64, 64, 5, generator=gen) / 18.0
+    conv = QuantConv1d(w.to(cuda), torch.zeros(64, device=cuda), dtype)
+    x = _rows(2, 333, 64, gen, dtype)
+    res = torch.randn(2, 333, 64, generator=gen).to(cuda, dtype)
+    plain = int8_conv1d_reference(x, conv, 2, 0.1) + res
+    out = res.clone()  # in place on the residual, as ResBlock1 runs it
+    int8_conv1d(x, conv, 2, 0.1, residual=out, out=out)
+    _close(out, plain, 2)
+    acc = int8_conv1d(x, conv, 2, 0.1, residual=res, mode=1,
+                      branch_scale=1 / 3)
+    _close(acc, plain * (1 / 3), 2)
+    int8_conv1d(x, conv, 2, 0.1, residual=res, out=acc, mode=2,
+                branch_scale=1 / 3)
+    _close(acc, plain * (1 / 3) + plain * (1 / 3), 3)
+    with pytest.raises(ValueError):
+        int8_conv1d(x, conv, 2, 0.1, out=x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_phase", [False, True])
+@pytest.mark.parametrize("c_in,c_out,k,u,t", [
+    (512, 256, 16, 8, 97), (64, 32, 4, 2, 1001), (128, 64, 4, 2, 130),
+    (32, 16, 8, 8, 50), (64, 32, 7, 3, 77)])
+def test_int8_conv_transpose_matches_plain(cuda, dtype, per_phase, c_in,
+                                           c_out, k, u, t):
+    gen = torch.Generator().manual_seed(c_in + u)
+    w = torch.randn(c_in, c_out, k, generator=gen) / (c_in * k / u) ** 0.5
+    conv = QuantConvTranspose1d(
+        w.to(cuda), (torch.randn(c_out, generator=gen) * 0.1).to(cuda), u,
+        (k - u) // 2, per_phase, dtype)
+    x = _rows(3, t, c_in, gen, dtype)
+    before = int8_conv_transpose1d.launches, row_scale.launches
+    got = int8_conv_transpose1d(x, conv, 0.1)
+    torch.cuda.synchronize()
+    assert (int8_conv_transpose1d.launches - before[0],
+            row_scale.launches - before[1]) == (1, 1)
+    want = int8_conv_transpose1d_reference(x, conv, 0.1)
+    assert got.shape == want.shape == (3, conv.out_length(t), c_out)
+    for row in range(3):
+        _close(got[row], want[row], 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,t,kind", [(256, 768, "1"), (32, 5000, "1"),
+                                      (64, 1001, "2")])
+def test_int8_stage_matches_plain(cuda, dtype, c, t, kind):
+    """A whole int8 stage: 18 (9) convs, each a scale and a conv launch.
+    A one-ulp difference in a conv's output can move a later conv's
+    quantised input by one step, so the bound is a step of the 127-level
+    grid, 1 / 127 of max |plain|, not an ulp."""
+    gen = torch.Generator().manual_seed(c + 1)
+    stage = quantize_stage([[(w.to(cuda), b.to(cuda)) for w, b in br]
+                            for br in _stage(c, kind, gen)], dtype)
+    h = torch.randn(2, t, c, generator=gen).to(cuda, dtype)
+    before = int8_conv1d.launches, row_scale.launches
+    got = mrf_stage_int8(h, stage, kind, DILATIONS)
+    torch.cuda.synchronize()
+    n = 9 * (2 if kind == "1" else 1)
+    assert (int8_conv1d.launches - before[0],
+            row_scale.launches - before[1]) == (n, n)
+    want = mrf_stage_int8_reference(h, stage, kind, DILATIONS)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= want.float().abs().max().item() / 127.0
+
+
+@pytest.mark.parametrize("m,k,hops", [(8192, 1024, 16), (100, 256, 3),
+                                      (65, 512, 1), (64, 1024, 0)])
+def test_int8_chain_equals_plain(cuda, m, k, hops):
+    gen = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 127, (m, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 127, (k, k), generator=gen, dtype=torch.int8)
+    a, w = a.to(cuda), w.to(cuda)
+    before = matmul_chain.launches
+    got = matmul_chain(a, w, hops)
+    torch.cuda.synchronize()
+    assert matmul_chain.launches - before == 1
+    assert torch.equal(got, matmul_chain_reference(a, w, hops))
+
+
+@pytest.mark.parametrize("m,k,hops", [(8192, 1024, 16), (100, 128, 3),
+                                      (33, 384, 1)])
+def test_bf16_chain_matches_plain(cuda, m, k, hops):
+    """f32 sums in another order, rounded to bf16 after every hop: a sum
+    near a rounding boundary lands one bf16 step apart and the next hops
+    spread it, so within 2 ** -5 of max |plain| (4 bf16 steps there)."""
+    gen = torch.Generator().manual_seed(k)
+    a = torch.randn(m, k, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(k, k, generator=gen) * (32.0 / k ** 0.5)).to(
+        cuda, torch.bfloat16)  # a hop keeps the magnitude at any K
+    got = matmul_chain(a, w, hops)
+    want = matmul_chain_reference(a, w, hops)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -5 * want.float().abs().max().item()
+
+
+def test_chain_refuses_what_it_cannot_run(cuda):
+    a = torch.zeros(8, 200, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):  # K % 256
+        matmul_chain(a, torch.zeros(200, 200, device=cuda, dtype=torch.int8))
+    with pytest.raises(ValueError):  # mixed types
+        matmul_chain(torch.zeros(8, 256, device=cuda, dtype=torch.int8),
+                     torch.zeros(256, 256, device=cuda,
+                                 dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("precision,atol", [("bf16", 3e-2), ("int8", 3e-2)])
+def test_reduced_infer_on_gpu_matches_cpu(cuda, precision, atol):
+    """flow_reverse + decode at a reduced precision on the GPU (K1-bf16 or
+    the int8 kernels) against the plain path on the CPU at the same
+    precision: bf16 glue on both sides, rounded at other places by cuDNN
+    and the CPU's convolutions, so within the JAX package's own drift bound
+    for a reduced decoder (3e-2 on a tanh-bounded wave) and correlation
+    above 0.99."""
+    cfg = Config.from_dict({
+        "train": {"segment_size": 256},
+        "data": {"filter_length": 64, "hop_length": 16, "win_length": 64},
+        "model": {"inter_channels": 32, "hidden_channels": 32,
+                  "filter_channels": 64, "n_layers": 2,
+                  "resblock_kernel_sizes": [3, 5],
+                  "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5]],
+                  "upsample_rates": [4, 4], "upsample_initial_channel": 128,
+                  "upsample_kernel_sizes": [8, 8], "gin_channels": 16},
+        "num_phones": 24, "num_speakers": 3})
+    model = random_init_(Synthesizer(cfg), 0).eval()
+    gen = torch.Generator().manual_seed(4)
+    z_p = torch.randn(2, 40, 32, generator=gen)
+    mask = torch.ones(2, 40, 1)
+    mask[1, 30:] = 0
+    sid = torch.tensor([0, 2])
+
+    def run(m, device):
+        g = m._speaker(sid.to(device))
+        z = m.flow_reverse(z_p.to(device), mask.to(device), g, precision)
+        return m.decode(z, g, precision=precision).cpu()
+
+    with torch.inference_mode():
+        want = run(model, "cpu")
+        model.to(cuda)
+        counters = (mrf_stage, int8_conv1d, int8_conv_transpose1d)
+        before = [f.launches for f in counters]
+        got = run(model, cuda)
+    moved = [f.launches - b for f, b in zip(counters, before)]
+    assert moved == ([24, 0, 0] if precision == "bf16" else [0, 24, 2])
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= atol
+    assert torch.corrcoef(torch.stack([got.flatten(),
+                                       want.flatten()]))[0, 1] > 0.99

@@ -45,7 +45,8 @@ PROBE = textwrap.dedent("""
         "models.discriminators", "models.encoders", "models.duration",
         "train.losses", "train.state", "train.step", "train.checkpoint",
         "train.trainer", "data.dataset", "data.sampler", "utils.wav",
-        "bin.train_vits"]
+        "bin.train_vits", "bin.infer_vits", "models.quant",
+        "ops.int8_chain", "tools.probe_int8"]
     missing = [m for m in expected
                if "wetts_tpu_torch." + m not in sys.modules]
     assert not missing, missing
@@ -74,9 +75,28 @@ PROBE = textwrap.dedent("""
             pass
         else:
             raise AssertionError("engine without a GPU did not raise")
-        from wetts_tpu_torch.bin import train_vits
+        for option in ("half", "quantize"):
+            try:
+                SynthesisEngine(cfg, Synthesizer(cfg), {"sil": 0},
+                                **{option: True})
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(option + " without a GPU did not raise")
+        from wetts_tpu_torch.bin import infer_vits, train_vits
+        from wetts_tpu_torch.tools import probe_int8
         from wetts_tpu_torch.train.trainer import Trainer
+        assert probe_int8.main() == 1  # no GPU: no result
+        import os
+        phones = os.path.join(sys.argv[1], "phones.txt")
+        with open(phones, "w") as f:
+            f.write("sil 0" + chr(10) + "a 1")
         for run in (lambda: Trainer(cfg, "unused", "unused", "unused"),
+                    lambda: infer_vits.main(
+                        ["--cfg", "examples/baker/configs/v1.json",
+                         "--model_dir", sys.argv[1], "--phone_table", phones,
+                         "--test_file", phones, "--outdir", sys.argv[1],
+                         "--precision", "int8"]),
                     lambda: train_vits.main(
                         ["-c", "examples/baker/configs/v1.json", "-m",
                          sys.argv[1], "--train_data", "unused",
@@ -98,4 +118,4 @@ def test_port_imports_no_jax_and_needs_a_gpu(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 36  # every module of the package was imported
+    assert n_modules >= 41  # every module of the package was imported

@@ -32,11 +32,20 @@
 // Tensor cores (TF32/bf16 wgmma), TMA and fusing the whole stage into one
 // launch are later work.
 //
+// The kernel has two instances, as the TPU kernel has: f32 in and out, and
+// bf16 in and out (activations, residual, weights and bias in bf16). Both
+// accumulate in f32 and keep the shared tiles in f32. The bf16 instance
+// converts while it stages (plain loads instead of cp.async, the leaky relu
+// rounded to bf16 as PyTorch rounds it, then widened), does the epilogue in
+// f32 and rounds once at the store.
+//
 // C must be a multiple of 4 (16-byte vectors along channels).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -70,11 +79,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <int TCO, int TT, int K>
+// 4 neighbouring values of the activation type, widened to f32, and back
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// leaky relu of a bf16 value, rounded to bf16 and widened again
+__device__ __forceinline__ float lrelu_bf16(float v, float slope) {
+  return v > 0.f ? v : __bfloat162float(__float2bfloat16_rn(v * slope));
+}
+
+template <typename XT, int TCO, int TT, int K>
 __global__ void __launch_bounds__(kThreads)
-mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, const float* res, float* out,
+mrf_conv_kernel(const XT* __restrict__ x, const XT* __restrict__ w,
+                const XT* __restrict__ bias, const XT* res, XT* out,
                 int T, int C, int dil, float slope, float scale, int mode) {
+  constexpr bool kF32 = std::is_same<XT, float>::value;
   constexpr int TX = TCO / 4;          // threads along output channels
   constexpr int TY = kThreads / TX;    // threads along time
   constexpr int TPT = TT / TY;         // time rows per thread
@@ -96,7 +138,7 @@ mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int co0 = blockIdx.y * TCO;
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
-  const float* xb = x + (size_t)b * T * C;
+  const XT* xb = x + (size_t)b * T * C;
   const int n_chunks = (C + kCi - 1) / kCi;
 
   // input tile rows t0 - pad .. t0 + TT + halo - pad (zero outside [0, T)
@@ -108,7 +150,17 @@ mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int t = t0 - pad + i / (kCi / 4);
       const int ci = ci0 + (i % (kCi / 4)) * 4;
       const bool ok = t >= 0 && t < T && ci < C;
-      cp_async16(buf + 4 * i, ok ? xb + (size_t)t * C + ci : xb, ok);
+      if constexpr (kF32) {
+        cp_async16(buf + 4 * i, ok ? xb + (size_t)t * C + ci : xb, ok);
+      } else {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) {
+          v = load4(xb + (size_t)t * C + ci);
+          v.x = lrelu_bf16(v.x, slope); v.y = lrelu_bf16(v.y, slope);
+          v.z = lrelu_bf16(v.z, slope); v.w = lrelu_bf16(v.w, slope);
+        }
+        store4(buf + 4 * i, v);
+      }
     }
     float* ws = buf + rows * kCi;
     for (int i = threadIdx.x; i < TCO * kCi * K; i += kThreads) {
@@ -118,8 +170,13 @@ mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int co = co0 + o;
       const int ci = ci0 + c;
       const bool ok = co < C && ci < C;
-      cp_async4(ws + k * KS + c * WS + o,
-                ok ? w + ((size_t)co * C + ci) * K + k : w, ok);
+      if constexpr (kF32) {
+        cp_async4(ws + k * KS + c * WS + o,
+                  ok ? w + ((size_t)co * C + ci) * K + k : w, ok);
+      } else {
+        ws[k * KS + c * WS + o] =
+            ok ? __bfloat162float(w[((size_t)co * C + ci) * K + k]) : 0.f;
+      }
     }
     cp_async_commit();
   };
@@ -139,14 +196,17 @@ mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     } else {
       cp_async_wait<0>();
     }
-    // leaky relu on the inputs this thread copied (its copies are done)
-    for (int i = threadIdx.x; i < rows * (kCi / 4); i += kThreads) {
-      float4 v = reinterpret_cast<float4*>(xs)[i];
-      v.x = v.x >= 0.f ? v.x : v.x * slope;
-      v.y = v.y >= 0.f ? v.y : v.y * slope;
-      v.z = v.z >= 0.f ? v.z : v.z * slope;
-      v.w = v.w >= 0.f ? v.w : v.w * slope;
-      reinterpret_cast<float4*>(xs)[i] = v;
+    // leaky relu on the inputs this thread copied (its copies are done);
+    // the bf16 instance applied it while staging
+    if constexpr (kF32) {
+      for (int i = threadIdx.x; i < rows * (kCi / 4); i += kThreads) {
+        float4 v = reinterpret_cast<float4*>(xs)[i];
+        v.x = v.x >= 0.f ? v.x : v.x * slope;
+        v.y = v.y >= 0.f ? v.y : v.y * slope;
+        v.z = v.z >= 0.f ? v.z : v.z * slope;
+        v.w = v.w >= 0.f ? v.w : v.w * slope;
+        reinterpret_cast<float4*>(xs)[i] = v;
+      }
     }
     __syncthreads();
 
@@ -184,7 +244,7 @@ mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // epilogue: bias, residual, then store / store-scaled / accumulate-scaled
   const int co = co0 + tx * 4;
   if (co >= C) return;
-  const float4 bv = *reinterpret_cast<const float4*>(bias + co);
+  const float4 bv = load4(bias + co);
 #pragma unroll
   for (int i = 0; i < TPT; ++i) {
     const int t = t0 + ty + i * TY;
@@ -193,24 +253,23 @@ mrf_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float4 v = make_float4(acc[i][0] + bv.x, acc[i][1] + bv.y,
                            acc[i][2] + bv.z, acc[i][3] + bv.w);
     if (res != nullptr) {
-      const float4 r = *reinterpret_cast<const float4*>(res + idx);
+      const float4 r = load4(res + idx);
       v.x += r.x; v.y += r.y; v.z += r.z; v.w += r.w;
     }
-    float4* o = reinterpret_cast<float4*>(out + idx);
     if (mode == 1) {
       v.x *= scale; v.y *= scale; v.z *= scale; v.w *= scale;
     } else if (mode == 2) {
-      const float4 p = *o;
+      const float4 p = load4(out + idx);
       v.x = p.x + v.x * scale; v.y = p.y + v.y * scale;
       v.z = p.z + v.z * scale; v.w = p.w + v.w * scale;
     }
-    *o = v;
+    store4(out + idx, v);
   }
 }
 
-template <int TCO, int TT, int K>
-cudaError_t launch(const float* x, const float* w, const float* bias,
-                   const float* res, float* out, int B, int T, int C,
+template <typename XT, int TCO, int TT, int K>
+cudaError_t launch(const XT* x, const XT* w, const XT* bias,
+                   const XT* res, XT* out, int B, int T, int C,
                    int dil, float slope, float scale, int mode,
                    cudaStream_t stream) {
   constexpr int KS = kCi * (TCO + 4) + 4;
@@ -230,7 +289,7 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
       e = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
       if (e != cudaSuccess) return e;
-      e = cudaFuncSetAttribute(mrf_conv_kernel<TCO, TT, K>,
+      e = cudaFuncSetAttribute(mrf_conv_kernel<XT, TCO, TT, K>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
       if (e != cudaSuccess) return e;
@@ -238,22 +297,22 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
     }
   }
   const dim3 grid((T + TT - 1) / TT, (C + TCO - 1) / TCO, B);
-  mrf_conv_kernel<TCO, TT, K><<<grid, kThreads, smem, stream>>>(
+  mrf_conv_kernel<XT, TCO, TT, K><<<grid, kThreads, smem, stream>>>(
       x, w, bias, res, out, T, C, dil, slope, scale, mode);
   return cudaGetLastError();
 }
 
 // the tap count is a template argument, so the tap loop unrolls and the
 // weight-staging index arithmetic divides by constants
-template <int TCO, int TT>
-cudaError_t launch_taps(const float* x, const float* w, const float* bias,
-                        const float* res, float* out, int B, int T, int C,
+template <typename XT, int TCO, int TT>
+cudaError_t launch_taps(const XT* x, const XT* w, const XT* bias,
+                        const XT* res, XT* out, int B, int T, int C,
                         int K, int dil, float slope, float scale, int mode,
                         cudaStream_t stream) {
 #define MRF_TAPS(k)                                                        \
   case k:                                                                  \
-    return launch<TCO, TT, k>(x, w, bias, res, out, B, T, C, dil, slope,   \
-                              scale, mode, stream);
+    return launch<XT, TCO, TT, k>(x, w, bias, res, out, B, T, C, dil,      \
+                                  slope, scale, mode, stream);
   switch (K) {
     MRF_TAPS(3) MRF_TAPS(5) MRF_TAPS(7) MRF_TAPS(9) MRF_TAPS(11)
     default:
@@ -262,21 +321,42 @@ cudaError_t launch_taps(const float* x, const float* w, const float* bias,
 #undef MRF_TAPS
 }
 
-}  // namespace
-
-// x, res, out: [B, T, C] f32 contiguous (res may be null); w: [C, C, K]
-// with K in {3, 5, 7, 9, 11}; bias: [C]. mode 0: out = v; 1: out = scale *
-// v; 2: out += scale * v.
-// Launches on `stream` and returns the launch's cudaError_t.
-extern "C" int mrf_conv_f32(const float* x, const float* w, const float* bias,
-                            const float* res, float* out, int B, int T, int C,
-                            int K, int dil, float slope, float scale, int mode,
-                            void* stream) {
+template <typename XT>
+int mrf_conv(const void* x, const void* w, const void* bias, const void* res,
+             void* out, int B, int T, int C, int K, int dil, float slope,
+             float scale, int mode, void* stream) {
   if (C % 4 != 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const XT* xp = static_cast<const XT*>(x);
+  const XT* wp = static_cast<const XT*>(w);
+  const XT* bp = static_cast<const XT*>(bias);
+  const XT* rp = static_cast<const XT*>(res);
+  XT* op = static_cast<XT*>(out);
   if (C > 32)
-    return (int)launch_taps<64, 128>(x, w, bias, res, out, B, T, C, K, dil,
-                                     slope, scale, mode, s);
-  return (int)launch_taps<32, 256>(x, w, bias, res, out, B, T, C, K, dil,
-                                   slope, scale, mode, s);
+    return (int)launch_taps<XT, 64, 128>(xp, wp, bp, rp, op, B, T, C, K, dil,
+                                         slope, scale, mode, s);
+  return (int)launch_taps<XT, 32, 256>(xp, wp, bp, rp, op, B, T, C, K, dil,
+                                       slope, scale, mode, s);
+}
+
+}  // namespace
+
+// x, res, out: [B, T, C] contiguous (res may be null); w: [C, C, K] with K
+// in {3, 5, 7, 9, 11}; bias: [C]; all f32 (mrf_conv_f32) or all bf16
+// (mrf_conv_bf16). mode 0: out = v; 1: out = scale * v; 2: out += scale * v.
+// Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int mrf_conv_f32(const void* x, const void* w, const void* bias,
+                            const void* res, void* out, int B, int T, int C,
+                            int K, int dil, float slope, float scale, int mode,
+                            void* stream) {
+  return mrf_conv<float>(x, w, bias, res, out, B, T, C, K, dil, slope, scale,
+                         mode, stream);
+}
+
+extern "C" int mrf_conv_bf16(const void* x, const void* w, const void* bias,
+                             const void* res, void* out, int B, int T, int C,
+                             int K, int dil, float slope, float scale,
+                             int mode, void* stream) {
+  return mrf_conv<__nv_bfloat16>(x, w, bias, res, out, B, T, C, K, dil, slope,
+                                 scale, mode, stream);
 }

@@ -21,11 +21,26 @@ wanted and by nothing else (never by whether the kernel built or launched):
 
 conv_pre, cond, the upsample convs and conv_post lay outside any Pallas
 kernel in the JAX package and stay F.conv1d / F.conv_transpose1d.
+
+Inference also runs at a reduced precision (`forward(..., precision=)`, the
+`dtype` / `quantize` arguments of wetts_tpu/models/hifigan_fast.py:209-323),
+which is an argument of the call and no config knob:
+
+- "bf16": weight norm is folded in f32 and the folded kernels are cast;
+  every conv runs in bf16, the MRF stages through K1's bf16 instance; the
+  output is cast back to f32;
+- "int8": as "bf16", but the upsample convs and every MRF conv are int8 with
+  dynamic activation scales (`models/quant.py`); conv_pre, cond and
+  conv_post stay in bf16.
+
+The cast and quantised weights are derived once and kept until the module's
+tensors are moved, cast, reloaded or refolded (`eval()`). Asking for a
+reduced precision where a gradient is wanted raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +56,62 @@ from wetts_tpu_torch.models.mrf import (
     Branch,
     check_stage,
     mrf_stage,
+    mrf_stage_int8,
     mrf_stage_reference,
+    quantize_stage,
 )
+from wetts_tpu_torch.models.quant import (
+    QuantConvTranspose1d,
+    int8_conv_transpose1d,
+    upsample_scale_per_phase,
+)
+
+PRECISIONS = ("f32", "bf16", "int8")
 
 
 def _forget_stages(module: "Generator", _incompatible_keys) -> None:
-    module._checked_stages = None
+    module._forget()
+
+
+class _Reduced:
+    """The decoder's weights at a reduced precision, derived from the folded
+    f32 buffers: bf16 copies of conv_pre / cond / conv_post and, for "bf16",
+    of the upsamples and the MRF stages; for "int8" the quantised MRF stages
+    and, made at first use, each upsample's kernel with per-channel or
+    per-phase scales."""
+
+    def __init__(self, gen: "Generator", precision: str,
+                 dtype: torch.dtype = torch.bfloat16):
+        def cast(conv):
+            return (conv.weight.detach().to(dtype),
+                    None if conv.bias is None
+                    else conv.bias.detach().to(dtype))
+
+        self.dtype = dtype
+        self.conv_pre = cast(gen.conv_pre)
+        self.cond = cast(gen.cond) if hasattr(gen, "cond") else None
+        self.conv_post = cast(gen.conv_post)
+        stages = [gen.stage_convs(i) for i in range(len(gen.ups))]
+        if precision == "int8":
+            self.stages = [quantize_stage(stage, dtype) for stage in stages]
+            self.ups: Dict = {}
+        else:
+            self.stages = [[[(w.detach().to(dtype), b.detach().to(dtype))
+                             for w, b in convs] for convs in stage]
+                           for stage in stages]
+            for stage in self.stages:
+                check_stage(stage, gen.resblock, gen.kernel_sizes,
+                            gen.dilations)
+            self.ups = {i: cast(up) for i, up in enumerate(gen.ups)}
+
+    def quantized_up(self, gen: "Generator", i: int, per_phase: bool
+                     ) -> QuantConvTranspose1d:
+        if (i, per_phase) not in self.ups:
+            up = gen.ups[i]
+            self.ups[i, per_phase] = QuantConvTranspose1d(
+                up.weight.detach(), up.bias.detach(), up.stride, up.padding,
+                per_phase, self.dtype)
+        return self.ups[i, per_phase]
 
 
 class ResBlock1(nn.Module):
@@ -108,6 +173,8 @@ class Generator(nn.Module):
                  gin_channels: int = 0):
         super().__init__()
         self.resblock = resblock
+        self.upsample_rates = tuple(upsample_rates)
+        self.upsample_initial_channel = upsample_initial_channel
         self.kernel_sizes = tuple(resblock_kernel_sizes)
         self.dilations = tuple(tuple(d) for d in resblock_dilation_sizes)
         self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7,
@@ -127,7 +194,12 @@ class Generator(nn.Module):
                 self.resblocks.append(res_cls(ch, rk, rd))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
         self._checked_stages: Optional[List[List[Branch]]] = None
+        self._reduced: Dict[str, _Reduced] = {}
         self.register_load_state_dict_post_hook(_forget_stages)
+
+    def _forget(self) -> None:
+        self._checked_stages = None
+        self._reduced = {}
 
     def stage_convs(self, i: int) -> List[Branch]:
         """Stage i's folded (weight, bias) pairs, one list per branch."""
@@ -147,8 +219,20 @@ class Generator(nn.Module):
         return self._checked_stages
 
     def _apply(self, fn, *args, **kwargs):
-        self._checked_stages = None
+        self._forget()
         return super()._apply(fn, *args, **kwargs)
+
+    def train(self, mode: bool = True):
+        """`eval()` refolds the weight-norm buffers; what was derived from
+        them at a reduced precision is derived anew at its next use."""
+        self._reduced = {}
+        return super().train(mode)
+
+    def reduced(self, precision: str) -> _Reduced:
+        """The weights at "bf16" or "int8", derived once and kept."""
+        if precision not in self._reduced:
+            self._reduced[precision] = _Reduced(self, precision)
+        return self._reduced[precision]
 
     def gradient_wanted(self, x: torch.Tensor) -> bool:
         """Whether the decoder must be differentiable for this call: in
@@ -158,8 +242,17 @@ class Generator(nn.Module):
             x.requires_grad or any(p.requires_grad
                                    for p in self.parameters())))
 
-    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
+                precision: str = "f32") -> torch.Tensor:
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                             f"{precision!r}")
+        if precision != "f32":
+            if self.gradient_wanted(x):
+                raise RuntimeError(
+                    f"the {precision} decoder is an inference route and has "
+                    "no backward: call eval() and run under torch.no_grad()")
+            return self._forward_reduced(x, g, precision)
         x = self.conv_pre(x)
         if g is not None and hasattr(self, "cond"):
             x = x + self.cond(g)
@@ -181,3 +274,36 @@ class Generator(nn.Module):
                 x = h.transpose(1, 2)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)
+
+    def _forward_reduced(self, x: torch.Tensor, g: Optional[torch.Tensor],
+                         precision: str,
+                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """The inference route at "bf16" or "int8" (`dtype` is the type of
+        the glue; the tests also run it in f32 to hold the int8 arithmetic
+        against the JAX package's closely). Returns f32."""
+        red = (self.reduced(precision) if dtype == torch.bfloat16
+               else _Reduced(self, precision, dtype))
+        x = F.conv1d(x.to(dtype), *red.conv_pre, padding=3)
+        if g is not None and red.cond is not None:
+            x = x + F.conv1d(g.to(dtype), *red.cond)
+        if precision == "int8":
+            per_phase = upsample_scale_per_phase(
+                self.upsample_initial_channel, self.upsample_rates,
+                x.shape[2])
+            h = x.transpose(1, 2).contiguous()  # [B, T, C] from here on
+            for i, stage in enumerate(red.stages):
+                h = int8_conv_transpose1d(
+                    h, red.quantized_up(self, i, per_phase[i]), LRELU_SLOPE)
+                h = mrf_stage_int8(h, stage, self.resblock, self.dilations)
+            x = h.transpose(1, 2)
+        else:
+            for i, (up, stage) in enumerate(zip(self.ups, red.stages)):
+                x = F.conv_transpose1d(F.leaky_relu(x, LRELU_SLOPE),
+                                       *red.ups[i], stride=up.stride,
+                                       padding=up.padding)
+                h = mrf_stage(x.transpose(1, 2).contiguous(), stage,
+                              self.resblock, self.kernel_sizes,
+                              self.dilations, checked=True)
+                x = h.transpose(1, 2)
+        x = F.conv1d(F.leaky_relu(x, 0.01), *red.conv_post, padding=3)
+        return torch.tanh(x).float()

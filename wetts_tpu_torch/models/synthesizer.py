@@ -15,10 +15,17 @@ latents and masks [B, T, C], the speaker vector g [B, 1, gin], audio
 [B, T * hop, 1], spectrograms [B, T_spec, bins]. Inside, modules run on
 [B, C, T]. Every noise draw takes an explicit `torch.Generator`. Voice
 conversion and the noise-scaled MAS of VITS2 are later slices.
+
+`flow_reverse` and `decode` take a `precision` ("f32", "bf16" or "int8"), as
+the JAX engine's `half` / `quantize` options do (serving/engine.py:190-237):
+under either reduced precision the flow runs in bf16, on a bf16 copy of its
+folded parameters that is made once, and the decoder in bf16 or int8;
+`encode_prior` stays f32, so the realized lengths are those of f32.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -89,6 +96,30 @@ class Synthesizer(nn.Module):
                                         gin_channels=gin)
         if self.n_speakers > 0:
             self.emb_g = nn.Embedding(self.n_speakers, gin)
+        # the bf16 copy of the flow, in a list so that it is no submodule
+        self._flow_bf16: list = []
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module._flow_bf16.clear())
+
+    def _apply(self, fn, *args, **kwargs):
+        self._flow_bf16.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def train(self, mode: bool = True):
+        self._flow_bf16.clear()  # eval() refolds what the copy was cast from
+        return super().train(mode)
+
+    def flow_bf16(self) -> ResidualCouplingBlock:
+        """The flow with its folded parameters cast to bf16 (weight norm is
+        folded in f32 first), made once and kept until the model's tensors
+        are moved, cast, reloaded or refolded."""
+        if self.training:
+            raise RuntimeError("the bf16 flow is an inference route: call "
+                               "eval() first")
+        if not self._flow_bf16:
+            self._flow_bf16.append(
+                copy.deepcopy(self.flow).to(torch.bfloat16).eval())
+        return self._flow_bf16[0]
 
     def _speaker(self, sid: Optional[torch.Tensor]
                  ) -> Optional[torch.Tensor]:
@@ -191,38 +222,49 @@ class Synthesizer(nn.Module):
         z_p = m_p_e + noise * torch.exp(logs_p_e) * noise_scale
         return _bct(z_p), y_lengths, y_mask, attn, g
 
-    def flow_reverse(self, z_p, y_mask, g=None):
-        """Prior latent [B, T, C] -> posterior latent z (masked)."""
+    def flow_reverse(self, z_p, y_mask, g=None, precision: str = "f32"):
+        """Prior latent [B, T, C] -> posterior latent z (masked); in bf16
+        (inputs cast, z returned in bf16) unless `precision` is "f32"."""
+        flow = self.flow
+        if precision != "f32":
+            flow = self.flow_bf16()
+            z_p, y_mask = z_p.to(torch.bfloat16), y_mask.to(torch.bfloat16)
+            g = None if g is None else g.to(torch.bfloat16)
         mask = _bct(y_mask)
-        z = self.flow(_bct(z_p), mask, g=None if g is None else _bct(g),
-                      reverse=True)
+        z = flow(_bct(z_p), mask, g=None if g is None else _bct(g),
+                 reverse=True)
         return _bct(z * mask)
 
     def encode_infer(self, x, x_lengths, sid=None, noise_scale=1.0,
                      length_scale=1.0, noise_scale_w=1.0,
                      max_frames: int = 1000,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     precision: str = "f32"):
         """Phone ids -> latent z (the streaming encoder half, :282-331).
         Returns (z [B, max_frames, C], y_lengths, y_mask, attn, g)."""
         z_p, y_lengths, y_mask, attn, g = self.encode_prior(
             x, x_lengths, sid, noise_scale, length_scale, noise_scale_w,
             max_frames, generator)
-        return self.flow_reverse(z_p, y_mask, g), y_lengths, y_mask, attn, g
+        return (self.flow_reverse(z_p, y_mask, g, precision), y_lengths,
+                y_mask, attn, g)
 
-    def decode(self, z, g=None, sid=None):
-        """Latent z [B, T, C] -> waveform [B, T * hop, 1] (:360-363)."""
+    def decode(self, z, g=None, sid=None, precision: str = "f32"):
+        """Latent z [B, T, C] -> waveform [B, T * hop, 1] in f32
+        (:360-363), the decoder at `precision`."""
         if g is None:
             g = self._speaker(sid)
-        o = self.dec(_bct(z), g=None if g is None else _bct(g))
+        o = self.dec(_bct(z), g=None if g is None else _bct(g),
+                     precision=precision)
         return _bct(o)
 
     def infer(self, x, x_lengths, sid=None, noise_scale=1.0,
               length_scale=1.0, noise_scale_w=1.0, max_frames: int = 1000,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None,
+              precision: str = "f32"
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Full synthesis: (audio [B, max_frames * hop, 1], y_lengths,
-        attn)."""
+        attn), the flow reverse and the decoder at `precision`."""
         z, y_lengths, _, attn, g = self.encode_infer(
             x, x_lengths, sid, noise_scale, length_scale, noise_scale_w,
-            max_frames, generator)
-        return self.decode(z, g), y_lengths, attn
+            max_frames, generator, precision)
+        return self.decode(z, g, precision=precision), y_lengths, attn

@@ -4,8 +4,16 @@ Behavioral parity target: the C++ TTS class (runtime/core/model/tts.cc):
 sentence segmentation -> phone-id mapping with a `sil` head, skipping OOV
 phones with a log (tts.cc:47-89) -> VITS -> concatenated audio; speaker-name
 -> sid with first-speaker fallback (tts.cc:130-138). Input is raw,
-space-separated phones; the text frontend, bf16, int8 and streaming are
-later slices.
+space-separated phones; the text frontend and streaming are later slices.
+
+`half` and `quantize` are the JAX engine's reduced-precision options
+(serving/engine.py:112-113,141-152): under either the flow reverse runs in
+bf16; the decoder runs in bf16 (`half`) or with int8 upsample and MRF
+convolutions and bf16 glue (`quantize`, which wins where both are set).
+The text encoder and the duration predictor stay f32, so the realized
+lengths are those of the f32 engine. The port has one decoder, so there is
+no "fast decoder unavailable" case to warn about: a vocoder it cannot run
+at a reduced precision raises.
 
 Synthesis is the JAX engine's two-phase path: encode at the
 (text_pad, max_frames) bucket, which fixes the `max_frames` clip of the
@@ -66,10 +74,23 @@ class SynthesisEngine:
         noise_scale_w: float = 0.8,
         seed: int = 0,
         device=None,
+        half: bool = False,
+        quantize: bool = False,
     ):
+        if (half or quantize) and cfg.model.vocoder_type != "hifigan":
+            raise ValueError(
+                "half/quantize run the HiFi-GAN decoder at a reduced "
+                f"precision; vocoder_type={cfg.model.vocoder_type!r} has "
+                "no such route")
+        self.half, self.quantize = bool(half), bool(quantize)
+        self.precision = "int8" if quantize else "bf16" if half else "f32"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
+        if self.precision != "f32":
+            # derive the bf16 / int8 weights now, not on the first request
+            self.model.flow_bf16()
+            self.model.dec.reduced(self.precision)
         self.phone2id = phone2id
         self.speaker2id = speaker2id or {}
         self.scales = (noise_scale, length_scale, noise_scale_w)
@@ -170,10 +191,11 @@ class SynthesisEngine:
                 fb = self._frame_bucket(int(y_len.max()), max_frames)
                 with self.stage_times.stage("flow"):
                     z = self.model.flow_reverse(z_p[:, :fb], y_mask[:, :fb],
-                                                g)
+                                                g, self.precision)
                     self._sync()
                 with self.stage_times.stage("decode"):
-                    audio = self.model.decode(z, g)[:, :, 0].cpu().numpy()
+                    audio = self.model.decode(
+                        z, g, precision=self.precision)[:, :, 0].cpu().numpy()
             return [audio[i, : int(y_len[i]) * self.hop] for i in range(n)]
 
     def synthesize(self, text: str, speaker: Optional[str] = None
