@@ -8,8 +8,9 @@ Phases, each of which must pass (any failure exits non-zero):
    port from `wetts_tpu_torch/csrc/` (one nvcc per source, all at once);
 2. hold kernel K1 (`mrf_stage`), in f32 (TF32 off) and in bf16, against its
    plain PyTorch version at the four VITS-base MRF stage shapes of a batch
-   of 4 at the 352-frame decode bucket, and time both; time the model's
-   three synthesis stages at the same bucket;
+   of 4 at the 352-frame decode bucket, and time both, and beside them the
+   library's convolutions of each stage alone; time the model's three
+   synthesis stages at the same bucket;
 3. hold the int8 kernels (row scale, dilated conv, transposed conv, a whole
    int8 MRF stage) against their plain versions at the same shapes in bf16:
    the integer sums are exact on both sides, so a single launch agrees to
@@ -72,6 +73,7 @@ CONFIG = os.path.join(ROOT, "examples", "baker", "configs", "v1.json")
 KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_chain")
 # H100 SXM published peaks at the 700 W limit (NVIDIA data sheet), dense
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -146,8 +148,18 @@ def stage_shapes(gen_cfg):
 def phase_kernels(model, gen_cfg, dtype=torch.float32):
     """K1 against its plain version at the v1 stage shapes, in f32 or in
     bf16 (inference: K1 has no backward and refuses inputs that record a
-    gradient)."""
-    from wetts_tpu_torch.models.mrf import mrf_stage, mrf_stage_reference
+    gradient), timed in turns with the plain chain and with the library's
+    convolutions of the stage alone (one F.conv1d per conv and nothing
+    else; in f32 with cuDNN's TF32 off and on), which the port never calls.
+    The f32 instance does three TF32 tensor-core products per f32 product,
+    so that is its bound; the f32 CUDA-core bound stands beside it."""
+    import torch.nn.functional as F
+
+    from wetts_tpu_torch.models.mrf import (
+        mrf_stage,
+        mrf_stage_reference,
+        pack_stage,
+    )
 
     kind = gen_cfg.resblock
     ks = tuple(gen_cfg.resblock_kernel_sizes)
@@ -158,34 +170,62 @@ def phase_kernels(model, gen_cfg, dtype=torch.float32):
     for i, t, c in stage_shapes(gen_cfg):
         stage = (model.dec.reduced("bf16").stages[i] if bf16
                  else model.dec.stage_convs(i))
+        packed = pack_stage(stage)  # as the decoder keeps it
         h = torch.randn(BATCH, t, c, device="cuda", generator=gen).to(dtype)
-        got = mrf_stage(h, stage, kind, ks, ds)
+        got = mrf_stage(h, stage, kind, ks, ds, packed=packed)
         want = mrf_stage_reference(h, stage, kind, ks, ds)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         scale = max(1.0, want.float().abs().max().item())
         check(bool(torch.isfinite(got).all()) and got.dtype == dtype,
               f"stage {i}: non-finite or of another type")
-        # f32: sums of up to C*k = 2816 products taken in another order.
+        # f32: sums of up to C*k = 2816 products taken in another order, in
+        # the tensor cores' f32 adders, of operands split into TF32 parts.
         # bf16: f32 sums on both sides, but the kernel rounds once after
         # bias and residual where the plain chain rounds after each, over 3
         # residual convs per branch: within 8 bf16 ulps of max |plain|
         tol = (8 * BF16_ULP if bf16 else 1e-4) * scale
         check(err <= tol, f"stage {i} {dtype}: max |kernel - plain| {err} > "
                           f"{tol}")
-        ms = cuda_ms(lambda: mrf_stage(h, stage, kind, ks, ds), 5)
-        plain_ms = cuda_ms(lambda: mrf_stage_reference(h, stage, kind, ks, ds),
-                           3)
+        ht = h.transpose(1, 2).contiguous()
+        convs = [(w, k, d) for branch, k, dils in zip(stage, ks, ds)
+                 for (w, _), d in zip(branch, conv_dilations(kind, dils))]
+
+        def kernel():
+            mrf_stage(h, stage, kind, ks, ds, packed=packed)
+
+        def plain():
+            mrf_stage_reference(h, stage, kind, ks, ds)
+
+        def library():
+            for w, k, d in convs:
+                F.conv1d(ht, w, padding=(k - 1) * d // 2, dilation=d)
+
+        # in turns: kernel, plain, library, kernel
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = cuda_ms(library, 3)
+        ms = 0.5 * (ms + cuda_ms(kernel, 10))
         nb = 2 if bf16 else 4
         flops, nbytes = stage_cost(BATCH, t, c, ks, ds, kind, nb, nb)
-        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-        bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
+        # bf16: one tensor-core product per product; f32: three TF32 ones
+        ops_ms = 1e3 * (flops / PEAK_BF16_FLOPS if bf16
+                        else 3 * flops / PEAK_TF32_FLOPS)
         row = {"stage": i, "B": BATCH, "T": t, "C": c, "max_abs_err": err,
                "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "gflop": flops / 1e9,
-               "tflops": flops / ms / 1e9,
+               "library_ms": library_ms,
+               "bound_ms": max(ops_ms, 1e3 * nbytes / PEAK_BYTES),
+               "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
                "one_tile_ms": one_tile_ms(
-                   lambda x: mrf_stage(x, stage, kind, ks, ds), h)}
+                   lambda x: mrf_stage(x, stage, kind, ks, ds,
+                                       packed=packed), h)}
+        if not bf16:
+            row["bound_f32_cuda_core_ms"] = 1e3 * flops / PEAK_F32_FLOPS
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                row["library_tf32_ms"] = cuda_ms(library, 3)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
         print(("K1-bf16 stage " if bf16 else "K1 stage ") + json.dumps(row))
         rows.append(row)
     return rows
@@ -1077,6 +1117,9 @@ def main() -> int:
                 "library_ms": library}
 
     q8 = "wetts_tpu/models/hifigan_fast.py:147"
+    # K1's f32 bound is that of three TF32 products per f32 product (the f32
+    # CUDA-core bound is in the `K1 stage` lines); its library_ms are the 72
+    # F.conv1d calls alone (f32 with cuDNN's TF32 off).
     # ms, plain_ms and bound_ms are sums: K1 and the int8 stage over the four
     # v1 MRF stages (18 convs each; the int8 stage with its 18 scale
     # launches), the transposed conv over the four upsamples, the row scale
@@ -1084,10 +1127,11 @@ def main() -> int:
     kernels = [
         kernel("mrf_stage", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172", launches["mrf_stage"],
-               rows, "operations"),
+               rows, "operations", total(rows, "library_ms")),
         kernel("mrf_stage_bf16", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
-               launches_bf16["mrf_stage"], rows_bf16, "operations"),
+               launches_bf16["mrf_stage"], rows_bf16, "operations",
+               total(rows_bf16, "library_ms")),
         kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
                train_launches["mas"], v1_rows, "bytes"),
         kernel("int8_conv", "int8_conv.cu", q8, launches_int8["int8_conv"],

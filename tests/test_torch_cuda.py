@@ -20,6 +20,9 @@ import torch
 from chip_smoke import phase_train_reference, random_init_
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.models.mrf import (
+    KERNEL_TAPS,
+    mrf_conv,
+    mrf_conv_reference,
     mrf_stage,
     mrf_stage_int8,
     mrf_stage_int8_reference,
@@ -70,12 +73,15 @@ def _stage(c, kind, gen):
 
 
 @pytest.mark.parametrize("c,t", [(256, 768), (128, 6144), (64, 12288),
-                                 (32, 24576)])
+                                 (32, 24576), (256, 777), (32, 1001),
+                                 (16, 513), (8, 37)])
 @pytest.mark.parametrize("kind", ["1", "2"])
 def test_mrf_kernel_matches_plain(cuda, c, t, kind):
-    """v1 stage widths at a 96-frame bucket, batch 2; max |kernel - plain|
-    <= 1e-4 * max(1, max |plain|): f32 sums of up to C*k products taken in
-    another order."""
+    """v1 stage widths at a 96-frame bucket, batch 2, then lengths that are
+    no multiple of a tile, narrow widths (C = 16 and 8 are padded to the
+    instruction's depth) and a length below the widest halo (50); max
+    |kernel - plain| <= 1e-4 * max(1, max |plain|): f32 sums of up to C*k
+    products taken in another order, from operands split into TF32 parts."""
     gen = torch.Generator().manual_seed(c)
     stage = [[(w.to(cuda), b.to(cuda)) for w, b in br]
              for br in _stage(c, kind, gen)]
@@ -101,7 +107,7 @@ def test_mrf_kernel_refuses_what_it_cannot_run(cuda):
                   stage, "2", KERNEL_SIZES, DILATIONS)
     stage = [[(torch.zeros(8, 8, 13, device=cuda),
                torch.zeros(8, device=cuda))]]
-    with pytest.raises(ValueError):  # no kernel instance for 13 taps
+    with pytest.raises(ValueError):  # the wrapper takes HiFi-GAN's tap counts
         mrf_stage(torch.zeros(1, 40, 8, device=cuda), stage, "2", (13,),
                   ((1,),))
 
@@ -220,7 +226,7 @@ def _close(got, want, ulps):
 
 
 @pytest.mark.parametrize("c,t", [(256, 768), (64, 12288), (32, 24576),
-                                 (40, 1001)])
+                                 (40, 1001), (256, 777), (16, 513), (8, 37)])
 @pytest.mark.parametrize("kind", ["1", "2"])
 def test_mrf_kernel_bf16_matches_plain(cuda, c, t, kind):
     """K1's bf16 instance (bf16 in, weights and out, f32 sums) against the
@@ -257,6 +263,66 @@ def test_mrf_kernel_refuses_mixed_types_and_a_gradient_in_bf16(cuda):
         mrf_stage_int8(h.float().requires_grad_(True), qstage, "2", DILATIONS)
     with torch.no_grad():
         mrf_stage(h, stage, "2", KERNEL_SIZES, DILATIONS)
+
+
+def _conv_tol(dtype, want):
+    """One conv: f32 within 1e-4, bf16 within 2 roundings of the output
+    type (the kernel rounds once, the plain version after the conv and
+    after each sum), both times max(1, max |plain|)."""
+    return ((1e-4 if dtype == torch.float32 else 2 * BF16_ULP)
+            * max(1.0, want.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", KERNEL_TAPS)
+@pytest.mark.parametrize("c,t", [(256, 300), (32, 1001), (8, 23)])
+def test_mrf_conv_taps_and_store_modes(cuda, dtype, k, c, t):
+    """One launch at every tap count with dilation 5: the three store modes
+    with and without a residual, and in place on the residual as ResBlock1
+    runs its second conv."""
+    gen = torch.Generator().manual_seed(c + k)
+    w = (torch.randn(c, c, k, generator=gen) / (c * k) ** 0.5).to(cuda, dtype)
+    bias = (torch.randn(c, generator=gen) * 0.1).to(cuda, dtype)
+    x = torch.randn(2, t, c, generator=gen).to(cuda, dtype)
+    res = torch.randn(2, t, c, generator=gen).to(cuda, dtype)
+    before = mrf_stage.launches
+    for r in (None, res):
+        want = mrf_conv_reference(x, w, bias, 5, residual=r)
+        tol = _conv_tol(dtype, want)
+        got = mrf_conv(x, w, bias, 5, residual=r)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        scaled = mrf_conv(x, w, bias, 5, residual=r, mode=1, scale=1 / 3)
+        assert (scaled.float() - want.float() / 3).abs().max().item() <= tol
+        mrf_conv(x, w, bias, 5, residual=r, out=scaled, mode=2, scale=1 / 3)
+        assert (scaled.float() - want.float() * (2 / 3)).abs().max().item() \
+            <= 2 * tol
+    want = mrf_conv_reference(x, w, bias, 5, residual=res)
+    out = res.clone()
+    assert mrf_conv(x, w, bias, 5, residual=out, out=out) is out
+    torch.cuda.synchronize()
+    assert (out.float() - want.float()).abs().max().item() \
+        <= _conv_tol(dtype, want)
+    assert mrf_stage.launches - before == 7
+    with pytest.raises(ValueError):
+        mrf_conv(x, w, bias, 5, out=x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mrf_kernel_on_another_stream(cuda, dtype):
+    """The kernel launches on PyTorch's current stream, whichever that is."""
+    gen = torch.Generator().manual_seed(9)
+    stage = [[(w.to(cuda, dtype), b.to(cuda, dtype)) for w, b in br]
+             for br in _stage(64, "1", gen)]
+    h = torch.randn(2, 3000, 64, generator=gen).to(cuda, dtype)
+    want = mrf_stage_reference(h, stage, "1", KERNEL_SIZES, DILATIONS)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        got = mrf_stage(h, stage, "1", KERNEL_SIZES, DILATIONS)
+    stream.synchronize()
+    tol = (8 * BF16_ULP if dtype == torch.bfloat16 else 1e-4) * max(
+        1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 def _rows(b, t, c, gen, dtype):

@@ -11,7 +11,9 @@ wanted and by nothing else (never by whether the kernel built or launched):
 
 - inference (eval mode and autograd not recording into the decoder): every
   stage goes through `mrf.mrf_stage`, which launches kernel K1 on the GPU
-  with the folded weights;
+  with the folded weights, packed once into the layout the kernel streams
+  (`packed_stages`) and packed anew after `eval()`, `.to()` or
+  `load_state_dict`;
 - training (`train()` mode, or autograd recording with an input or parameter
   that requires grad): every stage runs `mrf.mrf_stage_reference`, the
   differentiable F.conv1d chain, on kernels computed from
@@ -58,6 +60,7 @@ from wetts_tpu_torch.models.mrf import (
     mrf_stage,
     mrf_stage_int8,
     mrf_stage_reference,
+    pack_stage,
     quantize_stage,
 )
 from wetts_tpu_torch.models.quant import (
@@ -78,7 +81,8 @@ class _Reduced:
     f32 buffers: bf16 copies of conv_pre / cond / conv_post and, for "bf16",
     of the upsamples and the MRF stages; for "int8" the quantised MRF stages
     and, made at first use, each upsample's kernel with per-channel or
-    per-phase scales."""
+    per-phase scales. `packed` holds the bf16 MRF stages as K1 streams
+    them."""
 
     def __init__(self, gen: "Generator", precision: str,
                  dtype: torch.dtype = torch.bfloat16):
@@ -102,6 +106,7 @@ class _Reduced:
             for stage in self.stages:
                 check_stage(stage, gen.resblock, gen.kernel_sizes,
                             gen.dilations)
+            self.packed = [pack_stage(stage) for stage in self.stages]
             self.ups = {i: cast(up) for i, up in enumerate(gen.ups)}
 
     def quantized_up(self, gen: "Generator", i: int, per_phase: bool
@@ -194,11 +199,13 @@ class Generator(nn.Module):
                 self.resblocks.append(res_cls(ch, rk, rd))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
         self._checked_stages: Optional[List[List[Branch]]] = None
+        self._packed_stages: Optional[List[List[Branch]]] = None
         self._reduced: Dict[str, _Reduced] = {}
         self.register_load_state_dict_post_hook(_forget_stages)
 
     def _forget(self) -> None:
         self._checked_stages = None
+        self._packed_stages = None
         self._reduced = {}
 
     def stage_convs(self, i: int) -> List[Branch]:
@@ -218,13 +225,24 @@ class Generator(nn.Module):
             self._checked_stages = stages
         return self._checked_stages
 
+    def packed_stages(self) -> List[List[Branch]]:
+        """Every checked stage with its weights in K1's layout
+        (`mrf.pack_stage`): copies, so they are kept only until the folded
+        buffers change (`eval()` refolds them) or move."""
+        if self._packed_stages is None:
+            self._packed_stages = [pack_stage(stage)
+                                   for stage in self.checked_stages()]
+        return self._packed_stages
+
     def _apply(self, fn, *args, **kwargs):
         self._forget()
         return super()._apply(fn, *args, **kwargs)
 
     def train(self, mode: bool = True):
         """`eval()` refolds the weight-norm buffers; what was derived from
-        them at a reduced precision is derived anew at its next use."""
+        them (K1's packed weights, the reduced precisions) is derived anew
+        at its next use."""
+        self._packed_stages = None
         self._reduced = {}
         return super().train(mode)
 
@@ -266,11 +284,14 @@ class Generator(nn.Module):
                     x.transpose(1, 2), stage, self.resblock,
                     self.kernel_sizes, self.dilations).transpose(1, 2)
         else:
-            for up, stage in zip(self.ups, self.checked_stages()):
+            stages = self.checked_stages()
+            packed = (self.packed_stages() if x.is_cuda
+                      else [None] * len(stages))
+            for up, stage, pk in zip(self.ups, stages, packed):
                 x = up(F.leaky_relu(x, LRELU_SLOPE))
                 h = mrf_stage(x.transpose(1, 2).contiguous(), stage,
                               self.resblock, self.kernel_sizes,
-                              self.dilations, checked=True)
+                              self.dilations, checked=True, packed=pk)
                 x = h.transpose(1, 2)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)
@@ -303,7 +324,8 @@ class Generator(nn.Module):
                                        padding=up.padding)
                 h = mrf_stage(x.transpose(1, 2).contiguous(), stage,
                               self.resblock, self.kernel_sizes,
-                              self.dilations, checked=True)
+                              self.dilations, checked=True,
+                              packed=red.packed[i])
                 x = h.transpose(1, 2)
         x = F.conv1d(F.leaky_relu(x, 0.01), *red.conv_post, padding=3)
         return torch.tanh(x).float()
