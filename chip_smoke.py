@@ -11,14 +11,18 @@ Phases, each of which must pass (any failure exits non-zero):
    of 4 at the 352-frame decode bucket, and time both, and beside them the
    library's convolutions of each stage alone; time the model's three
    synthesis stages at the same bucket;
-3. hold the int8 kernels (row scale, dilated conv, transposed conv, a whole
-   int8 MRF stage) against their plain versions at the same shapes in bf16:
-   the integer sums are exact on both sides, so a single launch agrees to
-   the rounding of the output type;
+3. hold the int8 kernels (row scale Q0, dilated conv Q1 with the abs-max
+   of its output taken in its epilogue, transposed conv Q2, a whole int8
+   MRF stage) against their plain versions at the same shapes in bf16: the
+   integer sums are exact on both sides, so a single launch agrees to the
+   rounding of the output type and a fused scale is equal; per stage, the
+   convs' time, the one row-scale launch left, the whole stage and
+   K1-bf16's time for the same stage;
 4. hold K3 (`matmul_chain`, 16 dependent [8192, 1024] x [1024, 1024]
-   products) against its plain version, int8 exactly and bf16 within a
-   stated bound, and run the probe that times both chains, beside the same
-   hops through `torch._int_mm` / `torch.matmul` (timed here only);
+   products, one launch per hop) against its plain version, int8 exactly
+   and bf16 within a stated bound, and run the probe that times both
+   chains, beside the same hops through `torch._int_mm` / `torch.matmul`
+   (timed here only), with the bytes of `w` each chain reads from L2;
 5. the serving main path, once per precision (f32, bf16 = `half`, int8 =
    `quantize`): batches of 4 raw-phone requests of about 4 s of audio each
    through `SynthesisEngine` on the GPU at the full width of
@@ -70,7 +74,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "baker", "configs", "v1.json")
-KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_chain")
+KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_mrf_conv", "int8_chain")
 # H100 SXM published peaks at the 700 W limit (NVIDIA data sheet), dense
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
@@ -243,14 +247,19 @@ def _ulps(got, want) -> float:
 
 
 @torch.no_grad()
-def phase_int8_kernels(model, gen_cfg):
+def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
     """The int8 kernels against their plain versions at the v1 shapes, in
     bf16 as the serving path runs them. The integer sums are exact on both
     sides (the plain version takes them in float64), so one conv agrees to
     the rounding of bf16: at most 2 ulps of the row's max |plain| are
-    allowed, 1 is expected. Over a whole stage a one-ulp difference can move
-    a later conv's quantised input by one of its 127 steps, so the stage is
-    held to 1 / 127 of max |plain|."""
+    allowed, 1 is expected; the abs-max a conv takes of its output, once
+    finished, must equal `row_scale` of that output. Over a whole stage a
+    one-ulp difference can move a later conv's quantised input by one of
+    its 127 steps, so the stage is held to 1 / 127 of max |plain|. Each
+    stage is timed whole, without its one row-scale launch (its convs and
+    the zeroing of the abs-max buffer), beside K1-bf16's time for the same
+    stage in this run (`k1_bf16_rows`)."""
+    from wetts_tpu_torch.models import mrf
     from wetts_tpu_torch.models.mrf import (
         mrf_stage_int8,
         mrf_stage_int8_reference,
@@ -324,26 +333,33 @@ def phase_int8_kernels(model, gen_cfg):
         print("Q0 row scale " + json.dumps(row))
         out["scale"].append(row)
         conv = red.stages[i][-1][4]  # conv1 of dilation 5, 11 taps
-        got = int8_conv1d(h, conv, 5, LRELU_SLOPE)
+        sx = row_scale(h, LRELU_SLOPE)
+        amax = torch.zeros(BATCH, device="cuda")
+        got = int8_conv1d(h, conv, 5, LRELU_SLOPE, sx=sx, amax_out=amax)
         want = int8_conv1d_reference(h, conv, 5, LRELU_SLOPE)
         ulps = _ulps(got, want)
         check(ulps <= 2.0, f"int8 conv at stage {i}: {ulps} ulps from the "
                            f"plain version")
+        finished = torch.clamp_min(amax, 1e-12) / torch.full_like(amax, 127.0)
+        check(torch.equal(finished, row_scale_reference(got, LRELU_SLOPE)),
+              f"the fused abs-max at stage {i} differs from row_scale's")
         w_f = model.dec.stage_convs(i)[-1][4][0].to(torch.bfloat16)
         ht = h.transpose(1, 2).contiguous()
         ops = 2 * BATCH * t * c * c * conv.taps
-        ms = cuda_ms(lambda: int8_conv1d(h, conv, 5, LRELU_SLOPE), 10)
+        ms = cuda_ms(lambda: int8_conv1d(h, conv, 5, LRELU_SLOPE, sx=sx), 10)
         row = {"stage": i, "T": t, "C": c, "k": conv.taps, "dilation": 5,
                "ulps": ulps,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
-               "ms_with_scale": ms,
+               "ms": ms,
+               "ms_with_fused_amax": cuda_ms(lambda: int8_conv1d(
+                   h, conv, 5, LRELU_SLOPE, sx=sx, amax_out=amax), 10),
                "library_ms": cuda_ms(lambda: F.conv1d(
                    ht, w_f, padding=25, dilation=5), 10),
-               "gop": ops / 1e9, "tops_with_scale": ops / ms / 1e9}
+               "gop": ops / 1e9, "tops": ops / ms / 1e9}
         print("Q1 conv " + json.dumps(row))
         out["conv"].append(row)
 
-        # ---- the whole int8 stage: 18 scale and 18 conv launches
+        # ---- the whole int8 stage: 18 conv launches and one scale launch
         stage = red.stages[i]
         got = mrf_stage_int8(h, stage, kind, ds)
         want = mrf_stage_int8_reference(h, stage, kind, ds)
@@ -363,9 +379,25 @@ def phase_int8_kernels(model, gen_cfg):
             for w, k, d in convs:
                 F.conv1d(ht, w, padding=(k - 1) * d // 2, dilation=d)
 
+        def convs_alone():
+            # the stage with its one row-scale launch replaced by the scale
+            # computed above
+            real = mrf.row_scale
+            mrf.row_scale = lambda x, slope=None: sx
+            try:
+                mrf_stage_int8(h, stage, kind, ds)
+            finally:
+                mrf.row_scale = real
+
+        # in turns: stage, convs alone, stage
         ms = cuda_ms(lambda: mrf_stage_int8(h, stage, kind, ds), 5)
+        convs_ms = cuda_ms(convs_alone, 5)
+        ms = 0.5 * (ms + cuda_ms(lambda: mrf_stage_int8(h, stage, kind, ds),
+                                 5))
         row = {"stage": i, "B": BATCH, "T": t, "C": c, "max_abs_err": err,
-               "max_abs_plain": scale, "ms": ms,
+               "max_abs_plain": scale, "ms": ms, "convs_ms": convs_ms,
+               "row_scale_ms": out["scale"][-1]["ms"],
+               "k1_bf16_ms": k1_bf16_rows[i]["ms"],
                "plain_ms": cuda_ms(lambda: mrf_stage_int8_reference(
                    h, stage, kind, ds), 1),
                "library_ms": cuda_ms(library, 3),
@@ -387,6 +419,7 @@ def phase_chain():
     with PyTorch requantisation between them, timed here only."""
     from wetts_tpu_torch.ops.int8_chain import (
         HOPS,
+        ROW_TILE,
         matmul_chain,
         matmul_chain_reference,
     )
@@ -414,8 +447,14 @@ def phase_chain():
                   and err <= 2.0 ** -5 * scale,
                   f"bf16 chain: max |kernel - plain| {err} > {scale} / 32")
         nbytes = (2 * a.numel() + w.numel()) * a.element_size()
+        w_bytes = w.numel() * w.element_size()
         out[name] = {
             "max_abs_err": err, "max_abs_plain": scale,
+            # w is read once per 256-row tile and hop; the design before
+            # read it once per 64 (int8) or 32 (bf16) rows and hop
+            "w_l2_bytes": -(-m // ROW_TILE) * HOPS * w_bytes,
+            "w_l2_bytes_before": m // (64 if name == "int8" else 32) * HOPS
+                                 * w_bytes,
             "plain_ms": cuda_ms(lambda: matmul_chain_reference(a, w), 2),
             "bound_ms": 1e3 * max(ops / peak, nbytes / PEAK_BYTES)}
 
@@ -1006,8 +1045,10 @@ def serve_precision(cfg, name: str, options: dict, rng_seed: int,
                     for d in m.resblock_dilation_sizes
                     ) * len(m.upsample_rates)
     ups = len(m.upsample_rates)
+    # int8: one row scale per upsample input and one per MRF stage input;
+    # every other conv's scale comes from an epilogue
     want = {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
-            "int8": (0, mrf_convs, ups, mrf_convs + ups)}[name]
+            "int8": (0, mrf_convs, ups, 2 * ups)}[name]
     for (key, got), per_decode in zip(launches.items(), want):
         check(got == per_decode * n_decode,
               f"{name}: {key} launched {got} times, not {per_decode} x "
@@ -1073,7 +1114,7 @@ def main() -> int:
     engine = build_engine(cfg)
     rows = phase_kernels(engine.model, cfg.model)
     rows_bf16 = phase_kernels(engine.model, cfg.model, torch.bfloat16)
-    q = phase_int8_kernels(engine.model, cfg.model)
+    q = phase_int8_kernels(engine.model, cfg.model, rows_bf16)
     print("model_stages " + json.dumps(phase_model_stages(engine.model, {
         "f32": sum(r["ms"] for r in rows),
         "bf16": sum(r["ms"] for r in rows_bf16),
@@ -1121,8 +1162,8 @@ def main() -> int:
     # CUDA-core bound is in the `K1 stage` lines); its library_ms are the 72
     # F.conv1d calls alone (f32 with cuDNN's TF32 off).
     # ms, plain_ms and bound_ms are sums: K1 and the int8 stage over the four
-    # v1 MRF stages (18 convs each; the int8 stage with its 18 scale
-    # launches), the transposed conv over the four upsamples, the row scale
+    # v1 MRF stages (18 convs each; the int8 stage with its one scale
+    # launch), the transposed conv over the four upsamples, the row scale
     # over one call per stage shape, K2 over the three v1 training shapes
     kernels = [
         kernel("mrf_stage", "mrf_stage.cu",
@@ -1134,8 +1175,9 @@ def main() -> int:
                total(rows_bf16, "library_ms")),
         kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
                train_launches["mas"], v1_rows, "bytes"),
-        kernel("int8_conv", "int8_conv.cu", q8, launches_int8["int8_conv"],
-               q["stage"], "operations", total(q["stage"], "library_ms")),
+        kernel("int8_conv", "int8_mrf_conv.cu", q8,
+               launches_int8["int8_conv"], q["stage"], "operations",
+               total(q["stage"], "library_ms")),
         kernel("int8_conv_transpose", "int8_conv.cu", q8,
                launches_int8["int8_conv_transpose"], q["up"], "operations",
                total(q["up"], "library_ms")),

@@ -1,29 +1,31 @@
 // int8 convolutions of the quantised HiFi-GAN decoder: the activation row
-// scale, the dilated stride-1 conv of an MRF stage, and the transposed conv
-// of an upsample.
+// scale (Q0) and the transposed conv of an upsample (Q2). The dilated
+// stride-1 conv of an MRF stage (Q1) is csrc/int8_mrf_conv.cu.
 //
 // Replaces lax.conv_general_dilated on int8 operands in
 // wetts_tpu/models/hifigan_fast.py:_conv (q8=True), which the TPU ran on its
-// matrix unit through XLA. The wrappers are in
-// wetts_tpu_torch/models/quant.py; activations are [B, T, C] (channels
-// last), f32 or bf16.
+// matrix unit through XLA, and the reduction that gives its activation
+// scale. The wrappers are in wetts_tpu_torch/models/quant.py; activations
+// are [B, T, C] (channels last), f32 or bf16.
 //
 //   sx[b]  = max(max_{t,c} |lrelu(x[b, t, c])|, 1e-12) / 127
 //   xq     = clip(rint(lrelu(x) / sx[b]), -127, 127)             (int8)
 //   acc    = sum_{tap, ci} wq[co, ci, tap] * xq[b, row(t, tap), ci]  (int32)
 //   v      = rnd(f32(acc) * (sx[b] * sw[co]));  v = rnd(v + bias[co]);
-//   v      = rnd(v + res[b, t, co]);  out (op)= v
+//   out    = v
 //
-// with rnd the rounding to the activation type, x read as zero outside
-// [0, T), and `op` one of store / store-scaled / accumulate-scaled, kernel
-// K1's three store modes. The integer sums are exact, so the result differs
-// from the plain PyTorch version only where the two round f32 to the output
-// type; every float step is a single IEEE operation (no contraction).
+// with rnd the rounding to the activation type and x read as zero outside
+// [0, T). The integer sums are exact, so the result differs from the plain
+// PyTorch version only where the two round f32 to the output type; every
+// float step is a single IEEE operation (no contraction).
 //
-// What bounds it: arithmetic. A v1 MRF stage does 126 C x C taps per output
-// sample against 2*C*2 bytes of bf16 traffic, far above the int8
-// tensor-core ridge. The design is an implicit GEMM on the tensor cores
-// with mma.sync.m16n8k32 (s8 x s8 -> s32):
+// What bounds the transposed conv: arithmetic (2 * C_in * C_out * k / u
+// operations per output sample against 2 * (C_in + C_out * u) bytes). The
+// design is an implicit GEMM with mma.sync.m16n8k32 (s8 x s8 -> s32): for
+// the taps j = p (mod u) that reach one output phase it is a stride-1 conv
+// with ceil(k / u) taps over the input positions, whose outputs are written
+// u apart; gridDim.y also runs over the u phases, and the weight scale is
+// per (phase, channel).
 // - M is time (128 positions per block), N the output channels (128, 64 or
 //   32 per block), K the input channels of one tap; the taps are an outer
 //   loop over shifted rows of one shared input tile;
@@ -31,16 +33,13 @@
 //   leaky relu and the quantisation on load and keeps it in shared memory
 //   as int8, all input channels wide;
 // - the weights of one (tap, 256-channel chunk) are staged by cp.async,
-//   double-buffered, from a [tap, C_out, C_in] layout packed once on the
-//   host side; rows are padded by 16 bytes so fragment loads hit 32 banks;
+//   double-buffered, from a [phase, tap, C_out, C_in] layout packed once on
+//   the host side; rows are padded by 16 bytes so fragment loads hit 32
+//   banks;
 // - each warp owns 32 positions x (8 * NT) channels, its int32 sums in
 //   registers; fragments are plain 32-bit shared loads.
-// The transposed conv is the same kernel: for the taps j = p (mod u) that
-// reach one output phase it is a stride-1 conv with ceil(k / u) taps over
-// the input positions, whose outputs are written u apart; gridDim.y also
-// runs over the u phases, and the weight scale is per (phase, channel).
-// wgmma, TMA, ldmatrix and taking the abs-max in the previous conv's
-// epilogue (which would save the scale pass its read of x) are later work.
+// Q1's wgmma design (int8_mrf_conv.cu) is the model for this one's next
+// redesign.
 //
 // C_in must be a multiple of 32 and C_out of 8.
 
@@ -178,7 +177,6 @@ struct ConvArgs {
   const int8_t* wq;    // [phases, taps, C_out, C_in]
   const float* sw;     // [phases, C_out]
   const void* bias;    // [C_out] in the activation type, or null
-  const void* res;     // [B, T_out, C_out] or null
   void* out;           // [B, T_out, C_out]
   int T_in, T_out, M;  // M: positions tiled over
   int C_in, C_out, n_co_tiles;
@@ -187,8 +185,7 @@ struct ConvArgs {
   int step;            // input rows from one tap to the next
   int out_stride;      // output row of position m, phase p:
   int out_off;         //   m * out_stride + p + out_off
-  float slope, scale;
-  int mode;
+  float slope;
 };
 
 template <typename XT, int WARPS_N, int NT>
@@ -307,11 +304,10 @@ int8_conv_kernel(const ConvArgs a) {
     __syncthreads();  // the next prefetch overwrites this buffer
   }
 
-  // epilogue: dequantise, bias, residual, then the store mode; a thread
-  // holds, per 16 x 8 tile, rows g and g + 8 at channels 2 * tig, + 1
+  // epilogue: dequantise, bias; a thread holds, per 16 x 8 tile, rows g
+  // and g + 8 at channels 2 * tig, + 1
   const float sxb = a.sx[b];
   const XT* bias = static_cast<const XT*>(a.bias);
-  const XT* res = static_cast<const XT*>(a.res);
   XT* out = static_cast<XT*>(a.out);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -337,22 +333,6 @@ int8_conv_kernel(const ConvArgs a) {
         if (bias != nullptr) {
           v0 = Io<XT>::rnd(__fadd_rn(v0, bv[0]));
           v1 = Io<XT>::rnd(__fadd_rn(v1, bv[1]));
-        }
-        if (res != nullptr) {
-          float r[2];
-          Io<XT>::load2(res + idx, r);
-          v0 = Io<XT>::rnd(__fadd_rn(v0, r[0]));
-          v1 = Io<XT>::rnd(__fadd_rn(v1, r[1]));
-        }
-        if (a.mode != 0) {
-          v0 = Io<XT>::rnd(__fmul_rn(v0, a.scale));
-          v1 = Io<XT>::rnd(__fmul_rn(v1, a.scale));
-        }
-        if (a.mode == 2) {
-          float o[2];
-          Io<XT>::load2(out + idx, o);
-          v0 = __fadd_rn(o[0], v0);
-          v1 = __fadd_rn(o[1], v1);
         }
         Io<XT>::store2(out + idx, v0, v1);
       }
@@ -404,8 +384,7 @@ cudaError_t launch_width(const ConvArgs& a, int B, int phases,
 
 cudaError_t launch_type(const ConvArgs& a, int B, int phases, int is_bf16,
                         cudaStream_t stream) {
-  if (a.C_in % 32 != 0 || a.C_out % 8 != 0 || a.taps < 1 || a.mode < 0
-      || a.mode > 2)
+  if (a.C_in % 32 != 0 || a.C_out % 8 != 0 || a.taps < 1)
     return cudaErrorInvalidValue;
   if (is_bf16) return launch_width<__nv_bfloat16>(a, B, phases, stream);
   return launch_width<float>(a, B, phases, stream);
@@ -438,27 +417,6 @@ extern "C" int int8_row_scale(const void* x, float* sx, int B, long long n,
   return (int)cudaGetLastError();
 }
 
-// Dilated stride-1 'same' conv. x, res, out: [B, T, C] f32 or bf16 (res may
-// be null, out may alias res); wq: [K, C_out, C_in] int8; sw: [C_out]; bias
-// in the activation type or null. mode 0: out = v; 1: out = scale * v;
-// 2: out += scale * v. Returns the launch's cudaError_t.
-extern "C" int int8_conv1d(const void* x, const float* sx, const int8_t* wq,
-                           const float* sw, const void* bias, const void* res,
-                           void* out, int B, int T, int C_in, int C_out,
-                           int K, int dil, float slope, float scale, int mode,
-                           int is_bf16, void* stream) {
-  ConvArgs a{};
-  a.x = x; a.sx = sx; a.wq = wq; a.sw = sw; a.bias = bias; a.res = res;
-  a.out = out;
-  a.T_in = T; a.T_out = T; a.M = T;
-  a.C_in = C_in; a.C_out = C_out;
-  a.taps = K; a.row0 = -((K - 1) * dil / 2); a.step = dil;
-  a.out_stride = 1; a.out_off = 0;
-  a.slope = slope; a.scale = scale; a.mode = mode;
-  return (int)launch_type(a, B, 1, is_bf16,
-                          static_cast<cudaStream_t>(stream));
-}
-
 // Transposed conv of stride u and padding pd. wq: [u, taps, C_out, C_in],
 // for phase p the taps j = p + u * (taps - 1 - i) in the order i; sw:
 // [u, C_out] by the same p; out: [B, T_out, C_out]. Position m of phase p
@@ -471,13 +429,13 @@ extern "C" int int8_conv_transpose1d(const void* x, const float* sx,
                                      int is_bf16, void* stream) {
   if (u < 1 || T_out < 1) return (int)cudaErrorInvalidValue;
   ConvArgs a{};
-  a.x = x; a.sx = sx; a.wq = wq; a.sw = sw; a.bias = bias; a.res = nullptr;
+  a.x = x; a.sx = sx; a.wq = wq; a.sw = sw; a.bias = bias;
   a.out = out;
   a.T_in = T_in; a.T_out = T_out; a.M = (T_out - 1 + pd) / u + 1;
   a.C_in = C_in; a.C_out = C_out;
   a.taps = taps; a.row0 = -(taps - 1); a.step = 1;
   a.out_stride = u; a.out_off = -pd;
-  a.slope = slope; a.scale = 1.f; a.mode = 0;
+  a.slope = slope;
   return (int)launch_type(a, B, u, is_bf16,
                           static_cast<cudaStream_t>(stream));
 }

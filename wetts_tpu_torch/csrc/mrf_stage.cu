@@ -85,6 +85,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kMaxDevices = 64;
@@ -95,155 +97,6 @@ constexpr int kMaxXStages = 2;
 constexpr int kMaxWStages = 4;
 constexpr int kBarrierBytes = 8 * 2 * (kMaxXStages + kMaxWStages);
 constexpr int kSmemLimit = 232448;   // what one block may use on sm_90
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers ------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// wait until the barrier's phase differs from `parity`; a wait of more than
-// two seconds is a broken hand-over and traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  unsigned long long start = 0;
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((spins & 63) == 63) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (start == 0) start = now;
-      else if (now - start > 2000000000ull) __trap();
-    }
-  }
-}
-
-// `bytes` contiguous bytes global -> shared, completing on `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// 8 or 16 bytes global -> shared, asynchronously; `valid` false fills the
-// destination with zeros instead
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-               :: "r"(dst), "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// ---- wgmma ----------------------------------------------------------------
-
-// descriptor of a K-major operand without swizzle: 8 rows x 16 bytes core
-// matrices, `lbo` bytes between the two K slices of one instruction, `sbo`
-// bytes between 8-row groups
-__device__ __forceinline__ uint64_t operand_desc(uint32_t addr, uint32_t lbo,
-                                                 uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
-         | ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// a barrier of the consumer warpgroups alone
-template <int THREADS>
-__device__ __forceinline__ void consumer_barrier() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-#define MRF_REGS_8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define MRF_REGS_16 MRF_REGS_8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define MRF_REGS_32 MRF_REGS_16                                             \
-  ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define MRF_REGS_64 MRF_REGS_32                                             \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
-  "%60, %61, %62, %63"
-#define MRF_ACC_8(d, o)                                                  \
-  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),            \
-  "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define MRF_ACC_16(d, o) MRF_ACC_8(d, o), MRF_ACC_8(d, o + 8)
-#define MRF_ACC_32(d, o) MRF_ACC_16(d, o), MRF_ACC_16(d, o + 16)
-#define MRF_ACC_64(d, o) MRF_ACC_32(d, o), MRF_ACC_32(d, o + 32)
-
-// d[64 x N] += a[64 x K] * b[N x K]^T, both operands from shared memory;
-// a thread of the warpgroup holds N / 2 of the sums
-template <int N> struct Wgmma;
-
-#define MRF_WGMMA(N, REGS, ACC, A, B, P)                                     \
-  template <> struct Wgmma<N> {                                              \
-    static __device__ __forceinline__ void bf16(float (&d)[N / 2],           \
-                                                uint64_t a, uint64_t b) {    \
-      asm volatile(                                                          \
-          "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                     \
-          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "        \
-          "{" REGS "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"                    \
-          : ACC(d, 0) : "l"(a), "l"(b), "r"(1));                             \
-    }                                                                        \
-    static __device__ __forceinline__ void tf32(float (&d)[N / 2],           \
-                                                uint64_t a, uint64_t b) {    \
-      asm volatile(                                                          \
-          "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                     \
-          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 "         \
-          "{" REGS "}, " A ", " B ", p, 1, 1;\n}\n"                          \
-          : ACC(d, 0) : "l"(a), "l"(b), "r"(1));                             \
-    }                                                                        \
-  };
-
-MRF_WGMMA(16, MRF_REGS_8, MRF_ACC_8, "%8", "%9", "%10")
-MRF_WGMMA(32, MRF_REGS_16, MRF_ACC_16, "%16", "%17", "%18")
-MRF_WGMMA(64, MRF_REGS_32, MRF_ACC_32, "%32", "%33", "%34")
-MRF_WGMMA(128, MRF_REGS_64, MRF_ACC_64, "%64", "%65", "%66")
-
-// keeps the compiler from moving reads or writes of the sums across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_sums(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
 
 // ---- the activation type --------------------------------------------------
 
@@ -444,7 +297,7 @@ mrf_conv_kernel(const XT* __restrict__ x, const XT* __restrict__ wp,
       mbar_init(w_full + 8 * i, 1);
       mbar_init(w_empty + 8 * i, kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -490,7 +343,7 @@ mrf_conv_kernel(const XT* __restrict__ x, const XT* __restrict__ wp,
         stage_input<XT>(x_ring + slot * x_stage, x_part, xb, ptid, ns,
                         c * kChunkCh, t0 - pad, rows, rows_p, T, C, slope);
         // the stores above are read by the tensor cores' asynchronous proxy
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async();
         mbar_arrive(x_full + 8 * slot);
       }
     }
@@ -672,21 +525,8 @@ cudaError_t launch(const XT* x, const XT* wp, const XT* bias, const XT* res,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!prepared[dev].load()) {
-    int optin = 0;
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(mrf_conv_kernel<XT, NT, MT, WGS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(mrf_conv_kernel<XT, NT, MT, WGS>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return e;
-    prepared[dev].store(true);
-  }
+  e = allow_shared_memory(mrf_conv_kernel<XT, NT, MT, WGS>, dev, prepared);
+  if (e != cudaSuccess) return e;
   const int tt = WGS * MT * 64;
   const dim3 grid((T + tt - 1) / tt, g.co_p / NT, B);
   mrf_conv_kernel<XT, NT, MT, WGS><<<grid, WGS * 128 + 128, g.smem, stream>>>(

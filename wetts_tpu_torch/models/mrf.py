@@ -24,10 +24,12 @@ with T the length of the tensor.
   shared-memory bytes per (C, taps, dilation, type); the CUDA entry point
   re-derives them and refuses a disagreement.
 - `mrf_stage_int8` runs the same stage through the int8 convolution of
-  `models/quant.py` (`csrc/int8_conv.cu`): per conv one activation-scale
-  launch and one conv launch, counted in `row_scale.launches` and
-  `int8_conv1d.launches`; residual, branch scale and accumulation are the
-  conv's epilogue, as in K1. `mrf_stage_int8_reference` is its plain version.
+  `models/quant.py` (Q1, `csrc/int8_mrf_conv.cu`): one conv launch per conv
+  (`int8_conv1d.launches`) and one activation-scale launch for the stage's
+  input (`row_scale.launches`), shared by the branches' first convs; every
+  other conv's scale is the abs-max that the conv writing its input took in
+  its epilogue. Residual, branch scale and accumulation are the conv's
+  epilogue, as in K1. `mrf_stage_int8_reference` is its plain version.
 - `mrf_stage_reference` is the plain PyTorch version, the eager ResBlock
   chain through F.conv1d, and the kernel's oracle on the card. It is also
   the differentiable route: the kernel has no backward (as the TPU kernel
@@ -65,6 +67,7 @@ from wetts_tpu_torch.models.quant import (
     QuantConv1d,
     int8_conv1d,
     int8_conv1d_reference,
+    row_scale,
 )
 from wetts_tpu_torch.utils import cuda_build
 
@@ -523,24 +526,37 @@ def mrf_stage_int8(h: torch.Tensor, stage: Sequence[QuantBranch],
                    resblock_kind: str,
                    dilations: Sequence[Sequence[int]]) -> torch.Tensor:
     """One MRF stage with int8 convolutions, h [B, T, C] f32 or bf16 ->
-    [B, T, C]. On a CUDA tensor every conv is one `row_scale` and one
-    `int8_conv1d` launch (counted there); on a CPU tensor the plain
-    version runs."""
+    [B, T, C]. One `row_scale` of h, shared by the branches' first convs;
+    each conv that stores an input of a later conv takes that input's
+    abs-max per row into a row of one zeroed `[n_convs, B]` buffer, from
+    which the later conv finishes its scale. On a CUDA tensor every conv
+    is one `int8_conv1d` launch (counted there); on a CPU tensor the same
+    plumbing runs the plain versions, and the result equals
+    `mrf_stage_int8_reference`."""
     if resblock_kind not in ("1", "2"):
         raise ValueError(f"resblock must be '1' or '2', got {resblock_kind!r}")
     if len(stage) != len(dilations) or any(
             len(convs) != convs_per_branch(resblock_kind, d)
             for convs, d in zip(stage, dilations)):
         raise ValueError("the int8 stage does not fit the topology")
-    if h.device.type == "cpu":
-        return mrf_stage_int8_reference(h, stage, resblock_kind, dilations)
     _refuse_gradient(h, (), "the int8 MRF stage")
     h = h.contiguous()
     scale = 1.0 / len(stage)
+    amax = torch.zeros(sum(len(convs) for convs in stage), h.shape[0],
+                       device=h.device, dtype=torch.float32)
+    rows = iter(amax)
+    # where the scale of each buffer's current contents comes from: (sx,
+    # None), a finished scale, or (None, x_amax), an abs-max to finish
+    scale_of = {id(h): (row_scale(h, LRELU_SLOPE), None)}
 
     def conv(src, qconv, k, d, res, dst, mode):
+        sx, x_amax = scale_of[id(src)]
+        amax_out = next(rows) if mode == STORE else None
         int8_conv1d(src, qconv, d, LRELU_SLOPE, residual=res, out=dst,
-                    mode=mode, branch_scale=scale)
+                    mode=mode, branch_scale=scale, sx=sx, x_amax=x_amax,
+                    amax_out=amax_out)
+        if amax_out is not None:
+            scale_of[id(dst)] = (None, amax_out)
 
     return _run_stage(h, stage, resblock_kind,
                       [convs[0].taps for convs in stage], dilations, conv)

@@ -8,11 +8,13 @@ package's int8 feasibility probe: `hops` times `a <- requant(a @ w)` with
 - int8: int32 sums, `y >> 10` (arithmetic), clip to [-127, 127], int8;
 - bf16: f32 sums, `y * (1 / 32)`, cast to bf16.
 
-- `matmul_chain` is the wrapper: on CUDA tensors it launches the hand-written
-  kernel `csrc/int8_chain.cu` once for the whole chain (tensor-core
-  `mma.sync` in the kernel's own body; no library product) and counts the
-  launch in `matmul_chain.launches`; on CPU tensors it runs the plain
-  version. It never falls back from the kernel.
+- `matmul_chain` is the wrapper: on CUDA tensors it packs `a` and `w` into
+  the kernel's blocked layout (`pack_rows`) and launches the hand-written
+  kernel `csrc/int8_chain.cu` once per hop (tensor-core `wgmma` in the
+  kernel's own body; no library product), counting each launch in
+  `matmul_chain.launches`: a chain of `hops` hops is `hops` launches. On
+  CPU tensors it runs the plain version. It never falls back from the
+  kernel.
 - `matmul_chain_reference` is the plain PyTorch version. Its int8 sums are
   exact (a float64 product of the integers; an integer product does not run
   on CUDA), so the int8 chain compares with `torch.equal`; the bf16 chain
@@ -28,10 +30,14 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from wetts_tpu_torch.utils import cuda_build
 
 HOPS = 16
+ROW_TILE = 256  # rows of a's blocked layout (the kernel's output tile)
+COL_TILE = 128  # rows of w^T's blocked layout; K must be a multiple
+BLOCK_BYTES = 128  # bytes of K per block: 8 slices of 16 bytes
 
 
 def matmul_chain_reference(a: torch.Tensor, w: torch.Tensor,
@@ -49,11 +55,29 @@ def matmul_chain_reference(a: torch.Tensor, w: torch.Tensor,
     return a
 
 
+def pack_rows(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """[R, K] int8 or bf16 -> the kernel's blocked layout, bytes
+    [R padded to `tile` / tile][K bytes / 128][8 slices][tile rows][16]: the
+    128-byte K block of a row tile is one contiguous run, [16-byte slice]
+    [row][16 bytes], as the tensor cores read it. Padded rows are zeros."""
+    r, k = x.shape
+    raw = F.pad(x.contiguous().view(torch.uint8), (0, 0, 0, -r % tile))
+    return raw.view(-1, tile, raw.shape[1] // BLOCK_BYTES, BLOCK_BYTES // 16,
+                    16).permute(0, 2, 3, 1, 4).contiguous()
+
+
+def unpack_rows(p: torch.Tensor, r: int, dtype: torch.dtype) -> torch.Tensor:
+    """`pack_rows`' inverse: the first `r` rows as [r, K] of `dtype`."""
+    tiles, blocks, slices, tile, _ = p.shape
+    raw = p.permute(0, 3, 1, 2, 4).reshape(tiles * tile, blocks * slices * 16)
+    return raw[:r].contiguous().view(dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("int8_chain")
     for fn in (lib.chain_int8, lib.chain_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -76,20 +100,25 @@ def matmul_chain(a: torch.Tensor, w: torch.Tensor, hops: int = HOPS
     if a.device.type != "cuda":
         raise ValueError(f"matmul_chain runs on cuda or cpu, not {a.device}")
     m, k = a.shape
-    step = 256 if a.dtype == torch.int8 else 128
-    if k % step or k > 1024 or hops < 0:
-        raise ValueError(f"the chain kernel takes K % {step} == 0 and "
-                         f"K <= 1024 for {a.dtype}; got K={k}")
-    a = a.contiguous()
-    wt = w.t().contiguous()  # both operands with K contiguous
+    if k % COL_TILE or hops < 0:
+        raise ValueError(f"the chain kernel takes K % {COL_TILE} == 0 and "
+                         f"hops >= 0; got K={k}, hops={hops}")
+    if hops == 0:
+        return a.clone()
+    # both operands with K contiguous (w transposed), blocked; the packed a
+    # and one more buffer are the hops' ping-pong
+    ab = pack_rows(a, ROW_TILE)
+    wb = pack_rows(w.t(), COL_TILE)
+    buf = torch.empty_like(ab)
     out = torch.empty_like(a)
     lib = _library()
     launch = lib.chain_int8 if a.dtype == torch.int8 else lib.chain_bf16
-    err = launch(a.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k, hops,
+    err = launch(ab.data_ptr(), wb.data_ptr(), buf.data_ptr(),
+                 out.data_ptr(), m, k, hops,
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_chain launch failed: CUDA error {err}")
-    matmul_chain.launches += 1
+    matmul_chain.launches += hops
     return out
 
 

@@ -3,8 +3,9 @@ on this GPU, against the same chain in bf16?
 
 The twin of tools/probe_int8_mxu.py: 16 dependent `[8192, 1024] x
 [1024, 1024]` products with a requantisation between them
-(`ops/int8_chain.py:matmul_chain`, kernel K3), timed with CUDA events over
-10 launches, best of 3. Prints the card's name and power limit, then one
+(`ops/int8_chain.py:matmul_chain`, kernel K3: one launch per hop, with the
+wrapper's packing of the operands), timed with CUDA events over 10 chains,
+best of 3. Prints the card's name and power limit, then one
 JSON line with the keys of the TPU probe (`shape`, `chain`, `device`,
 `bf16_ms`, `bf16_tflops`, `int8_ms`, `int8_tops`, `int8_speedup`) plus
 `card`.

@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into `wetts_tpu_torch/_build/lib<name>-<hash>.so`,
-which `ctypes` loads; the hash covers the source and the flags, so an edited
-source builds anew. A build is written to a temporary file and renamed, so
-a killed or concurrent build never leaves a half-written library behind.
+which `ctypes` loads; the hash covers the source, the headers of `csrc/` it
+includes (`#include "x.cuh"`, and theirs) and the flags, so an edited
+source or header builds anew. A build is written to a temporary file and
+renamed, so a killed or concurrent build never leaves a half-written
+library behind.
 Nothing is built when a module is imported, and nothing outside the package
 directory is written.
 """
@@ -15,9 +17,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import List
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -36,10 +40,27 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and every header of `csrc/` it includes, directly or
+    through another header, in the order first reached."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for header in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append(CSRC_DIR / header.decode())
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the shared library of `csrc/<name>.cu` is (to be) built."""
     digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes()
+        b"".join(path.read_bytes() for path in sources(name))
         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
