@@ -11,13 +11,15 @@ Phases, each of which must pass (any failure exits non-zero):
    of 4 at the 352-frame decode bucket, and time both, and beside them the
    library's convolutions of each stage alone; time the model's three
    synthesis stages at the same bucket;
-3. hold the int8 kernels (row scale Q0, dilated conv Q1 with the abs-max
-   of its output taken in its epilogue, transposed conv Q2, a whole int8
-   MRF stage) against their plain versions at the same shapes in bf16: the
-   integer sums are exact on both sides, so a single launch agrees to the
-   rounding of the output type and a fused scale is equal; per stage, the
-   convs' time, the one row-scale launch left, the whole stage and
-   K1-bf16's time for the same stage;
+3. hold the int8 kernels (row scale Q0, dilated conv Q1 and transposed
+   conv Q2, both taking the abs-max of their output in their epilogue, a
+   whole int8 MRF stage) against their plain versions at the same shapes
+   in bf16: the integer sums are exact on both sides, so a single launch
+   agrees to the rounding of the output type and a fused scale is equal;
+   Q0 at conv_pre's output (the one row scale left per decode); each
+   upsample with its scale work as the decoder runs it and alone; per
+   stage, the whole stage as the decoder runs it and K1-bf16's time for
+   the same stage;
 4. hold K3 (`matmul_chain`, 16 dependent [8192, 1024] x [1024, 1024]
    products, one launch per hop) against its plain version, int8 exactly
    and bf16 within a stated bound, and run the probe that times both
@@ -72,6 +74,8 @@ import wave
 import numpy as np
 import torch
 
+from wetts_tpu_torch.utils.profiling import cuda_ms, device_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "baker", "configs", "v1.json")
 KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_mrf_conv", "int8_chain")
@@ -96,19 +100,6 @@ TRAIN_UTTERANCES, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 64, 1, 4
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` runs, after a warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def one_tile_ms(stage_fn, h: torch.Tensor) -> float:
@@ -252,14 +243,19 @@ def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
     bf16 as the serving path runs them. The integer sums are exact on both
     sides (the plain version takes them in float64), so one conv agrees to
     the rounding of bf16: at most 2 ulps of the row's max |plain| are
-    allowed, 1 is expected; the abs-max a conv takes of its output, once
-    finished, must equal `row_scale` of that output. Over a whole stage a
-    one-ulp difference can move a later conv's quantised input by one of
-    its 127 steps, so the stage is held to 1 / 127 of max |plain|. Each
-    stage is timed whole, without its one row-scale launch (its convs and
-    the zeroing of the abs-max buffer), beside K1-bf16's time for the same
-    stage in this run (`k1_bf16_rows`)."""
-    from wetts_tpu_torch.models import mrf
+    allowed, 1 is expected; the abs-max a conv or an upsample takes of its
+    output, once finished, must equal `row_scale` of that output. Over a
+    whole stage a one-ulp difference can move a later conv's quantised input
+    by one of its 127 steps, so the stage is held to 1 / 127 of max |plain|.
+    Scales as the decoder takes them: Q0 once, at conv_pre's output; each
+    upsample's `ms` with its scale work (the first one's Q0 launch, the
+    others' abs-max finished in the kernel, and its own abs-max epilogue),
+    `conv_ms` given a finished scale; each stage given its input's abs-max,
+    taking its output's, beside K1-bf16's time for the same stage in this
+    run (`k1_bf16_rows`). `ms` is back to back, as every kernel here is
+    timed, so a call whose host work outlasts its device work is timed by
+    the host; `device_ms` (Q0, Q2 and Q2's library call) is the device's
+    alone, the launches queued behind a sleep."""
     from wetts_tpu_torch.models.mrf import (
         mrf_stage_int8,
         mrf_stage_int8_reference,
@@ -284,54 +280,97 @@ def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
         gen_cfg.upsample_initial_channel, gen_cfg.upsample_rates,
         FRAME_BUCKET)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def finish(amax):
+        return torch.clamp_min(amax, 1e-12) / torch.full_like(amax, 127.0)
+
+    def abs_max(x):
+        return F.leaky_relu(x, LRELU_SLOPE).abs().amax(dim=(1, 2)).float()
+
+    def loud_and_quiet(*shape):
+        x = torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        x[1] *= 0.01  # a quiet row beside the loud ones
+        return x
+
     out = {"stage": [], "conv": [], "up": [], "scale": []}
+    # ---- Q0: the one row scale left per decode, of conv_pre's output
+    x0 = loud_and_quiet(BATCH, FRAME_BUCKET, gen_cfg.upsample_initial_channel)
+    check(torch.equal(row_scale(x0, LRELU_SLOPE),
+                      row_scale_reference(x0, LRELU_SLOPE)),
+          "the row scale differs from the plain version")
+    row = {"T": FRAME_BUCKET, "C": x0.shape[2], "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: row_scale(x0, LRELU_SLOPE), 20),
+           "device_ms": device_ms(lambda: row_scale(x0, LRELU_SLOPE)),
+           "plain_ms": cuda_ms(lambda: row_scale_reference(
+               x0, LRELU_SLOPE), 5),
+           "bound_ms": 1e3 * 2 * x0.numel() / PEAK_BYTES}
+    print("Q0 row scale " + json.dumps(row))
+    out["scale"].append(row)
+
     t_in = FRAME_BUCKET
     for i, t, c in stage_shapes(gen_cfg):
         # ---- the upsample into this stage: [B, t_in, 2C] -> [B, t, C]
         up = red.quantized_up(model.dec, i, per_phase[i])
-        x = torch.randn(BATCH, t_in, 2 * c, device="cuda",
-                        generator=gen).to(torch.bfloat16)
-        x[1] *= 0.01  # a quiet row beside the loud ones
-        got = int8_conv_transpose1d(x, up, LRELU_SLOPE)
+        x = x0 if i == 0 else loud_and_quiet(BATCH, t_in, 2 * c)
+        x_amax, sx = abs_max(x), row_scale(x, LRELU_SLOPE)
+        amax = torch.zeros(BATCH, device="cuda")
+        got = int8_conv_transpose1d(x, up, LRELU_SLOPE, x_amax=x_amax,
+                                    amax_out=amax)
         want = int8_conv_transpose1d_reference(x, up, LRELU_SLOPE)
         ulps = _ulps(got, want)
         check(got.shape == (BATCH, t, c) and ulps <= 2.0,
               f"int8 upsample {i}: {ulps} ulps from the plain version")
+        check(torch.equal(finish(amax), row_scale_reference(got, LRELU_SLOPE)),
+              f"the fused abs-max of upsample {i} differs from row_scale's")
+        check(torch.equal(int8_conv_transpose1d(x, up, LRELU_SLOPE, sx=sx),
+                          got), f"upsample {i} given sx differs")
         w_f = model.dec.ups[i].weight.to(torch.bfloat16)
         xt = x.transpose(1, 2).contiguous()
         ops = 2 * BATCH * t_in * 2 * c * c * up.taps
         nbytes = 2 * BATCH * (t_in * 2 * c + t * c) + up.wq.numel()
+
+        def with_scale_work():
+            # as the decoder runs it: the first upsample after the one row
+            # scale, the others finishing the abs-max the stage before took
+            if i == 0:
+                int8_conv_transpose1d(x, up, LRELU_SLOPE,
+                                      sx=row_scale(x, LRELU_SLOPE),
+                                      amax_out=amax)
+            else:
+                int8_conv_transpose1d(x, up, LRELU_SLOPE, x_amax=x_amax,
+                                      amax_out=amax)
+
+        def library():
+            F.conv_transpose1d(xt, w_f, stride=up.stride, padding=up.padding)
+
+        # in turns: with scale work, conv alone, library, with scale work
+        ms = cuda_ms(with_scale_work, 20)
+        conv_ms = cuda_ms(lambda: int8_conv_transpose1d(
+            x, up, LRELU_SLOPE, sx=sx), 20)
+        library_ms = cuda_ms(library, 20)
+        ms = 0.5 * (ms + cuda_ms(with_scale_work, 20))
         row = {"stage": i, "T_in": t_in, "C_in": 2 * c, "C_out": c,
                "k": up.taps, "u": up.stride, "per_phase": per_phase[i],
                "ulps": ulps,
                "max_abs_err": (got.float() - want.float()).abs().max().item(),
-               "ms": cuda_ms(lambda: int8_conv_transpose1d(
-                   x, up, LRELU_SLOPE), 10),
+               "ms": ms, "conv_ms": conv_ms,
+               "device_ms": device_ms(with_scale_work),
+               "library_device_ms": device_ms(library),
                "plain_ms": cuda_ms(lambda: int8_conv_transpose1d_reference(
                    x, up, LRELU_SLOPE), 1),
-               "library_ms": cuda_ms(lambda: F.conv_transpose1d(
-                   xt, w_f, stride=up.stride, padding=up.padding), 10),
+               "library_ms": library_ms,
                "bound_ms": 1e3 * max(ops / PEAK_INT8_OPS,
                                      nbytes / PEAK_BYTES),
-               "gop": ops / 1e9}
+               "bound_by": ("bytes" if nbytes / PEAK_BYTES
+                            >= ops / PEAK_INT8_OPS else "operations"),
+               "gop": ops / 1e9, "mb": nbytes / 1e6}
         print("Q2 upsample " + json.dumps(row))
         out["up"].append(row)
         t_in = t
 
-        # ---- the row scale and the widest conv (k = 11, dilation 5)
-        h = torch.randn(BATCH, t, c, device="cuda",
-                        generator=gen).to(torch.bfloat16)
-        h[1] *= 0.01
-        check(torch.equal(row_scale(h, LRELU_SLOPE),
-                          row_scale_reference(h, LRELU_SLOPE)),
-              f"row scale at stage {i} differs from the plain version")
-        row = {"stage": i, "T": t, "C": c, "max_abs_err": 0.0,
-               "ms": cuda_ms(lambda: row_scale(h, LRELU_SLOPE), 20),
-               "plain_ms": cuda_ms(lambda: row_scale_reference(
-                   h, LRELU_SLOPE), 5),
-               "bound_ms": 1e3 * 2 * h.numel() / PEAK_BYTES}
-        print("Q0 row scale " + json.dumps(row))
-        out["scale"].append(row)
+        # ---- the widest conv (k = 11, dilation 5)
+        h = loud_and_quiet(BATCH, t, c)
         conv = red.stages[i][-1][4]  # conv1 of dilation 5, 11 taps
         sx = row_scale(h, LRELU_SLOPE)
         amax = torch.zeros(BATCH, device="cuda")
@@ -340,8 +379,7 @@ def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
         ulps = _ulps(got, want)
         check(ulps <= 2.0, f"int8 conv at stage {i}: {ulps} ulps from the "
                            f"plain version")
-        finished = torch.clamp_min(amax, 1e-12) / torch.full_like(amax, 127.0)
-        check(torch.equal(finished, row_scale_reference(got, LRELU_SLOPE)),
+        check(torch.equal(finish(amax), row_scale_reference(got, LRELU_SLOPE)),
               f"the fused abs-max at stage {i} differs from row_scale's")
         w_f = model.dec.stage_convs(i)[-1][4][0].to(torch.bfloat16)
         ht = h.transpose(1, 2).contiguous()
@@ -359,15 +397,22 @@ def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
         print("Q1 conv " + json.dumps(row))
         out["conv"].append(row)
 
-        # ---- the whole int8 stage: 18 conv launches and one scale launch
+        # ---- the whole int8 stage: 18 conv launches, its input's scale
+        # finished from the upsample's abs-max, its output's taken by the
+        # last conv, as the decoder runs it
         stage = red.stages[i]
-        got = mrf_stage_int8(h, stage, kind, ds)
+        h_amax, amax = abs_max(h), torch.zeros(BATCH, device="cuda")
+        got = mrf_stage_int8(h, stage, kind, ds, x_amax=h_amax,
+                             amax_out=amax)
         want = mrf_stage_int8_reference(h, stage, kind, ds)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         check(bool(torch.isfinite(got).all()) and err <= scale / 127.0,
               f"int8 stage {i}: max |kernel - plain| {err} > {scale} / 127")
+        check(torch.equal(finish(amax), row_scale_reference(got, LRELU_SLOPE)),
+              f"the stage {i} output's fused abs-max differs from "
+              f"row_scale's")
         ops, nbytes = stage_cost(BATCH, t, c, ks, ds, kind, 2, 1)
         # the cuDNN bf16 convolutions of the same stage, one F.conv1d per
         # conv and nothing else: the library's time for the products
@@ -379,24 +424,10 @@ def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
             for w, k, d in convs:
                 F.conv1d(ht, w, padding=(k - 1) * d // 2, dilation=d)
 
-        def convs_alone():
-            # the stage with its one row-scale launch replaced by the scale
-            # computed above
-            real = mrf.row_scale
-            mrf.row_scale = lambda x, slope=None: sx
-            try:
-                mrf_stage_int8(h, stage, kind, ds)
-            finally:
-                mrf.row_scale = real
-
-        # in turns: stage, convs alone, stage
-        ms = cuda_ms(lambda: mrf_stage_int8(h, stage, kind, ds), 5)
-        convs_ms = cuda_ms(convs_alone, 5)
-        ms = 0.5 * (ms + cuda_ms(lambda: mrf_stage_int8(h, stage, kind, ds),
-                                 5))
+        ms = cuda_ms(lambda: mrf_stage_int8(h, stage, kind, ds,
+                                            x_amax=h_amax, amax_out=amax), 5)
         row = {"stage": i, "B": BATCH, "T": t, "C": c, "max_abs_err": err,
-               "max_abs_plain": scale, "ms": ms, "convs_ms": convs_ms,
-               "row_scale_ms": out["scale"][-1]["ms"],
+               "max_abs_plain": scale, "ms": ms,
                "k1_bf16_ms": k1_bf16_rows[i]["ms"],
                "plain_ms": cuda_ms(lambda: mrf_stage_int8_reference(
                    h, stage, kind, ds), 1),
@@ -1045,10 +1076,10 @@ def serve_precision(cfg, name: str, options: dict, rng_seed: int,
                     for d in m.resblock_dilation_sizes
                     ) * len(m.upsample_rates)
     ups = len(m.upsample_rates)
-    # int8: one row scale per upsample input and one per MRF stage input;
-    # every other conv's scale comes from an epilogue
+    # int8: one row scale, of conv_pre's output; every other scale comes
+    # from an epilogue (the upsamples' and the convs')
     want = {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
-            "int8": (0, mrf_convs, ups, 2 * ups)}[name]
+            "int8": (0, mrf_convs, ups, 1)}[name]
     for (key, got), per_decode in zip(launches.items(), want):
         check(got == per_decode * n_decode,
               f"{name}: {key} launched {got} times, not {per_decode} x "
@@ -1162,9 +1193,12 @@ def main() -> int:
     # CUDA-core bound is in the `K1 stage` lines); its library_ms are the 72
     # F.conv1d calls alone (f32 with cuDNN's TF32 off).
     # ms, plain_ms and bound_ms are sums: K1 and the int8 stage over the four
-    # v1 MRF stages (18 convs each; the int8 stage with its one scale
-    # launch), the transposed conv over the four upsamples, the row scale
-    # over one call per stage shape, K2 over the three v1 training shapes
+    # v1 MRF stages (18 convs each; the int8 stage as the decoder runs it,
+    # its scales from epilogues), the transposed conv over the four
+    # upsamples with their scale work (the first one's row scale included),
+    # the row scale over its one call (conv_pre's output), K2 over the
+    # three v1 training shapes. The upsamples are bound by bytes (their
+    # sum; the first alone by operations, the `bound_by` of each `Q2` line)
     kernels = [
         kernel("mrf_stage", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172", launches["mrf_stage"],
@@ -1178,8 +1212,8 @@ def main() -> int:
         kernel("int8_conv", "int8_mrf_conv.cu", q8,
                launches_int8["int8_conv"], q["stage"], "operations",
                total(q["stage"], "library_ms")),
-        kernel("int8_conv_transpose", "int8_conv.cu", q8,
-               launches_int8["int8_conv_transpose"], q["up"], "operations",
+        kernel("int8_conv_transpose", "int8_mrf_conv.cu", q8,
+               launches_int8["int8_conv_transpose"], q["up"], "bytes",
                total(q["up"], "library_ms")),
         kernel("int8_row_scale", "int8_conv.cu",
                "wetts_tpu/models/hifigan_fast.py:141",

@@ -349,6 +349,25 @@ def test_row_scale_equals_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_scale_is_one_launch_that_resets_its_counter(cuda, dtype):
+    """Q0's last block finishes the scales and zeroes the ticket counter:
+    calls one after another (with 128 blocks a row and with one), and on a
+    second stream, each equal the plain version."""
+    gen = torch.Generator().manual_seed(4)
+    big = _rows(5, 352, 512, gen, dtype)
+    small = _rows(3, 7, 32, gen, dtype)
+    for x in (big, small, big, big, small):
+        assert torch.equal(row_scale(x, 0.1), row_scale_reference(x, 0.1))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [row_scale(big, 0.1) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    for sx in got:
+        assert torch.equal(sx, row_scale_reference(big, 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c_in,c_out,k,d,t", [
     (32, 32, 3, 1, 1001), (32, 32, 11, 5, 777), (512, 512, 3, 5, 300),
     (64, 64, 7, 3, 129), (128, 256, 11, 1, 500), (96, 40, 5, 2, 260)])
@@ -488,6 +507,44 @@ def test_int8_conv_transpose_matches_plain(cuda, dtype, per_phase, c_in,
     assert got.shape == want.shape == (3, conv.out_length(t), c_out)
     for row in range(3):
         _close(got[row], want[row], 2)
+    # given the abs-max of its input, as the decoder runs it: no row scale
+    x_amax = torch.nn.functional.leaky_relu(x, 0.1).abs().amax(
+        dim=(1, 2)).float()
+    before = int8_conv_transpose1d.launches, row_scale.launches
+    assert torch.equal(int8_conv_transpose1d(x, conv, 0.1, x_amax=x_amax),
+                       got)
+    assert (int8_conv_transpose1d.launches - before[0],
+            row_scale.launches - before[1]) == (1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,k,u,t", [
+    (512, 256, 16, 8, 352), (256, 128, 16, 8, 700), (128, 64, 4, 2, 1500),
+    (64, 32, 4, 2, 3001), (256, 32, 8, 4, 99), (64, 32, 7, 3, 77)])
+def test_int8_upsample_fused_abs_max(cuda, dtype, c_in, c_out, k, u, t):
+    """Q2's epilogue takes max |lrelu(out)| per batch row over what it
+    stores (a loud, a quiet and a zero row): finished, it equals
+    `row_scale` of the output, the scale of the stage that reads it; the
+    input scale given finished (`sx`) or as an abs-max (`x_amax`) gives the
+    same output."""
+    gen = torch.Generator().manual_seed(c_in + k + t)
+    w = torch.randn(c_in, c_out, k, generator=gen) / (c_in * k / u) ** 0.5
+    conv = QuantConvTranspose1d(
+        w.to(cuda), (torch.randn(c_out, generator=gen) * 0.1).to(cuda), u,
+        (k - u) // 2, True, dtype)
+    x = _rows(3, t, c_in, gen, dtype)
+    sx = row_scale(x, 0.1)
+    x_amax = torch.nn.functional.leaky_relu(x, 0.1).abs().amax(
+        dim=(1, 2)).float()
+    amax = torch.zeros(3, device=cuda)
+    got = int8_conv_transpose1d(x, conv, 0.1, sx=sx, amax_out=amax)
+    torch.cuda.synchronize()
+    assert torch.equal(_finish(amax), row_scale_reference(got, 0.1))
+    assert torch.equal(int8_conv_transpose1d(x, conv, 0.1, x_amax=x_amax),
+                       got)
+    want = int8_conv_transpose1d_reference(x, conv, 0.1)
+    for row in range(3):
+        _close(got[row], want[row], 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -512,6 +569,19 @@ def test_int8_stage_matches_plain(cuda, dtype, c, t, kind):
     want = mrf_stage_int8_reference(h, stage, kind, DILATIONS)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= want.float().abs().max().item() / 127.0
+    # as the decoder runs it: the input's abs-max from the upsample, the
+    # output's from the last conv's epilogue, and no row scale
+    x_amax = torch.nn.functional.leaky_relu(h, 0.1).abs().amax(
+        dim=(1, 2)).float()
+    amax = torch.zeros(2, device=cuda)
+    before = int8_conv1d.launches, row_scale.launches
+    fused = mrf_stage_int8(h, stage, kind, DILATIONS, x_amax=x_amax,
+                           amax_out=amax)
+    torch.cuda.synchronize()
+    assert (int8_conv1d.launches - before[0],
+            row_scale.launches - before[1]) == (n, 0)
+    assert torch.equal(fused, got)
+    assert torch.equal(_finish(amax), row_scale_reference(fused, 0.1))
 
 
 @pytest.mark.parametrize("m,k,hops", [(8192, 1024, 16), (100, 256, 3),
@@ -590,11 +660,14 @@ def test_reduced_infer_on_gpu_matches_cpu(cuda, precision, atol):
     with torch.inference_mode():
         want = run(model, "cpu")
         model.to(cuda)
-        counters = (mrf_stage, int8_conv1d, int8_conv_transpose1d)
+        counters = (mrf_stage, int8_conv1d, int8_conv_transpose1d,
+                    row_scale)
         before = [f.launches for f in counters]
         got = run(model, cuda)
     moved = [f.launches - b for f, b in zip(counters, before)]
-    assert moved == ([24, 0, 0] if precision == "bf16" else [0, 24, 2])
+    # int8: one row scale per decode, of conv_pre's output
+    assert moved == ([24, 0, 0, 0] if precision == "bf16"
+                     else [0, 24, 2, 1])
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert (got - want).abs().max().item() <= atol
     assert torch.corrcoef(torch.stack([got.flatten(),

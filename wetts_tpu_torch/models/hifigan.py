@@ -33,7 +33,9 @@ which is an argument of the call and no config knob:
   output is cast back to f32;
 - "int8": as "bf16", but the upsample convs and every MRF conv are int8 with
   dynamic activation scales (`models/quant.py`); conv_pre, cond and
-  conv_post stay in bf16.
+  conv_post stay in bf16. One `row_scale` of conv_pre's output is the only
+  pass that finds a scale: every later one is the abs-max that the conv
+  storing the input took in its epilogue.
 
 The cast and quantised weights are derived once and kept until the module's
 tensors are moved, cast, reloaded or refolded (`eval()`). Asking for a
@@ -66,6 +68,7 @@ from wetts_tpu_torch.models.mrf import (
 from wetts_tpu_torch.models.quant import (
     QuantConvTranspose1d,
     int8_conv_transpose1d,
+    row_scale,
     upsample_scale_per_phase,
 )
 
@@ -312,10 +315,21 @@ class Generator(nn.Module):
                 self.upsample_initial_channel, self.upsample_rates,
                 x.shape[2])
             h = x.transpose(1, 2).contiguous()  # [B, T, C] from here on
+            # one row scale, of conv_pre's output; every later scale is an
+            # abs-max that the conv storing the input took in its epilogue:
+            # each upsample's for its stage, each stage's last conv's for
+            # the next upsample (rows of one zeroed buffer)
+            n = len(red.stages)
+            amax = torch.zeros(2 * n - 1, h.shape[0], device=h.device,
+                               dtype=torch.float32)
+            sx, x_amax = row_scale(h, LRELU_SLOPE), None
             for i, stage in enumerate(red.stages):
                 h = int8_conv_transpose1d(
-                    h, red.quantized_up(self, i, per_phase[i]), LRELU_SLOPE)
-                h = mrf_stage_int8(h, stage, self.resblock, self.dilations)
+                    h, red.quantized_up(self, i, per_phase[i]), LRELU_SLOPE,
+                    sx=sx, x_amax=x_amax, amax_out=amax[2 * i])
+                sx, x_amax = None, amax[2 * i + 1] if i + 1 < n else None
+                h = mrf_stage_int8(h, stage, self.resblock, self.dilations,
+                                   x_amax=amax[2 * i], amax_out=x_amax)
             x = h.transpose(1, 2)
         else:
             for i, (up, stage) in enumerate(zip(self.ups, red.stages)):

@@ -25,11 +25,13 @@ with T the length of the tensor.
   re-derives them and refuses a disagreement.
 - `mrf_stage_int8` runs the same stage through the int8 convolution of
   `models/quant.py` (Q1, `csrc/int8_mrf_conv.cu`): one conv launch per conv
-  (`int8_conv1d.launches`) and one activation-scale launch for the stage's
-  input (`row_scale.launches`), shared by the branches' first convs; every
-  other conv's scale is the abs-max that the conv writing its input took in
-  its epilogue. Residual, branch scale and accumulation are the conv's
-  epilogue, as in K1. `mrf_stage_int8_reference` is its plain version.
+  (`int8_conv1d.launches`). Every conv's scale is the abs-max that the
+  conv writing its input took in its epilogue; the stage input's comes
+  from the upsample before it (`x_amax`) or, given none, from one
+  activation-scale launch (`row_scale.launches`), and the last conv takes
+  the stage output's for the next upsample (`amax_out`). Residual, branch
+  scale and accumulation are the conv's epilogue, as in K1.
+  `mrf_stage_int8_reference` is its plain version.
 - `mrf_stage_reference` is the plain PyTorch version, the eager ResBlock
   chain through F.conv1d, and the kernel's oracle on the card. It is also
   the differentiable route: the kernel has no backward (as the TPU kernel
@@ -524,14 +526,20 @@ def mrf_stage_int8_reference(h: torch.Tensor, stage: Sequence[QuantBranch],
 
 def mrf_stage_int8(h: torch.Tensor, stage: Sequence[QuantBranch],
                    resblock_kind: str,
-                   dilations: Sequence[Sequence[int]]) -> torch.Tensor:
+                   dilations: Sequence[Sequence[int]],
+                   x_amax: Optional[torch.Tensor] = None,
+                   amax_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One MRF stage with int8 convolutions, h [B, T, C] f32 or bf16 ->
-    [B, T, C]. One `row_scale` of h, shared by the branches' first convs;
-    each conv that stores an input of a later conv takes that input's
-    abs-max per row into a row of one zeroed `[n_convs, B]` buffer, from
-    which the later conv finishes its scale. On a CUDA tensor every conv
-    is one `int8_conv1d` launch (counted there); on a CPU tensor the same
-    plumbing runs the plain versions, and the result equals
+    [B, T, C]. The scale of h, shared by the branches' first convs, is
+    finished from `x_amax` (the abs-max of lrelu(h) per row that the
+    upsample before took) where given, else one `row_scale` of h. Each
+    conv that stores an input of a later conv takes that input's abs-max
+    per row into a row of one zeroed `[n_convs, B]` buffer, from which the
+    later conv finishes its scale; the last conv, which stores the stage's
+    output, takes its abs-max into `amax_out` ([B] f32, zeroed by the
+    caller) where given, the next upsample's `x_amax`. On a CUDA tensor
+    every conv is one `int8_conv1d` launch (counted there); on a CPU tensor
+    the same plumbing runs the plain versions, and the result equals
     `mrf_stage_int8_reference`."""
     if resblock_kind not in ("1", "2"):
         raise ValueError(f"resblock must be '1' or '2', got {resblock_kind!r}")
@@ -542,21 +550,29 @@ def mrf_stage_int8(h: torch.Tensor, stage: Sequence[QuantBranch],
     _refuse_gradient(h, (), "the int8 MRF stage")
     h = h.contiguous()
     scale = 1.0 / len(stage)
-    amax = torch.zeros(sum(len(convs) for convs in stage), h.shape[0],
-                       device=h.device, dtype=torch.float32)
+    n_convs = sum(len(convs) for convs in stage)
+    amax = torch.zeros(n_convs, h.shape[0], device=h.device,
+                       dtype=torch.float32)
     rows = iter(amax)
     # where the scale of each buffer's current contents comes from: (sx,
     # None), a finished scale, or (None, x_amax), an abs-max to finish
-    scale_of = {id(h): (row_scale(h, LRELU_SLOPE), None)}
+    scale_of = {id(h): (None, x_amax) if x_amax is not None
+                else (row_scale(h, LRELU_SLOPE), None)}
+    remaining = n_convs
 
     def conv(src, qconv, k, d, res, dst, mode):
+        nonlocal remaining
         sx, x_amax = scale_of[id(src)]
-        amax_out = next(rows) if mode == STORE else None
+        remaining -= 1
+        if mode == STORE:
+            out_amax = next(rows)
+        else:  # the output; the last conv stores its final values
+            out_amax = amax_out if remaining == 0 else None
         int8_conv1d(src, qconv, d, LRELU_SLOPE, residual=res, out=dst,
                     mode=mode, branch_scale=scale, sx=sx, x_amax=x_amax,
-                    amax_out=amax_out)
-        if amax_out is not None:
-            scale_of[id(dst)] = (None, amax_out)
+                    amax_out=out_amax)
+        if mode == STORE:
+            scale_of[id(dst)] = (None, out_amax)
 
     return _run_stage(h, stage, resblock_kind,
                       [convs[0].taps for convs in stage], dilations, conv)

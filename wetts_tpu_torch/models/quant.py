@@ -20,21 +20,23 @@ The rule, as the JAX package computes it:
 
 Activations are `[B, T, C]` (channels last, as kernel K1 takes them), f32 or
 bf16. Quantised weights are made once (`QuantConv1d`, `QuantConvTranspose1d`)
-and never per call; `QuantConv1d` keeps them packed as the wgmma kernel
-streams them (`pack_int8_weight`, tiled as `int8_conv_geometry` says).
+and never per call, and kept packed as the wgmma kernel streams them
+(`pack_int8_weight`, tiled as `int8_conv_geometry` and
+`int8_upsample_geometry` say).
 
 - `row_scale`, `int8_conv1d` and `int8_conv_transpose1d` are the wrappers: on
-  a CUDA tensor each launches its hand-written kernel (`row_scale` and the
-  transposed conv in `csrc/int8_conv.cu`, the stride-1 conv in
-  `csrc/int8_mrf_conv.cu`) and counts the launch (`.launches`); on a CPU
-  tensor each runs its plain version. None falls back from its kernel.
-- `int8_conv1d` takes its input's scale as given (`sx`), as the abs-max a
-  conv before it gathered (`x_amax`), or, given neither, from one
-  `row_scale` launch; with `amax_out` it takes the max of `|lrelu(out)|`
-  over what it stores per batch row into that buffer, so that the conv
-  that reads its output needs no pass of its own (`mrf.mrf_stage_int8`).
-  A max does not depend on order, so the scales are bit-equal to
-  `row_scale`'s either way.
+  a CUDA tensor each launches its hand-written kernel (`row_scale` in
+  `csrc/int8_conv.cu`, the stride-1 conv and the transposed conv, one GEMM
+  kernel, in `csrc/int8_mrf_conv.cu`) and counts the launch (`.launches`);
+  on a CPU tensor each runs its plain version. None falls back from its
+  kernel.
+- `int8_conv1d` and `int8_conv_transpose1d` take their input's scale as
+  given (`sx`), as the abs-max a conv before them gathered (`x_amax`), or,
+  given neither, from one `row_scale` launch; with `amax_out` they take the
+  max of `|lrelu(out)|` over what they store per batch row into that
+  buffer, so that the conv that reads their output needs no pass of its own
+  (`mrf.mrf_stage_int8`, `hifigan.Generator`'s int8 route). A max does not
+  depend on order, so the scales are bit-equal to `row_scale`'s either way.
 - `row_scale_reference`, `int8_conv1d_reference` and
   `int8_conv_transpose1d_reference` are the plain PyTorch versions. They
   take the integer sums exactly, through a float64 convolution of the
@@ -51,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,7 +72,9 @@ TWO_BLOCKS = 115712  # at most this, two blocks share an SM
 SLICE = 16           # int8 values of one 16-byte K slice of an operand row
 CHUNK_SLICES = 8     # slices staged together: 128 input channels
 X_STAGES, W_STAGES = 2, 4
-BARRIER_BYTES = 96   # the mbarriers behind the rings
+MAX_X_STAGES = 4     # the input ring's most stages
+BARRIER_BYTES = 128  # the mbarriers behind the rings
+COLUMN_BYTES = 1024  # a pass's 128 column scales and biases (f32)
 
 
 class Q8Geometry(NamedTuple):
@@ -107,6 +111,30 @@ def int8_conv_geometry(c_in: int, c_out: int, taps: int, dil: int,
         raise ValueError(f"the int8 conv takes C_in % 32 == 0, C_out % 8 == "
                          f"0 and an odd kernel size; got {c_in} -> {c_out}, "
                          f"k={taps}, dilation {dil}")
+    return _gemm_geometry(c_in, c_out, taps, dil, f32, 2, False)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_upsample_geometry(c_in: int, c_out: int, k: int, u: int,
+                           f32: bool) -> Q8Geometry:
+    """Q2's geometry for one upsample (transposed conv of kernel size k,
+    stride u): the same kernel's GEMM with N = u * C_out columns (phase x
+    output channel) and K = ceil(k / u) taps of C_in, dilation 1, and one
+    epilogue tile (no residual); its input ring holds a whole tile, so that
+    a block can take several N tiles with the input staged once. ValueError
+    where it does not fit."""
+    if c_in % 32 or c_out % 8 or k < 1 or u < 1:
+        raise ValueError(f"the int8 upsample takes C_in % 32 == 0 and C_out "
+                         f"% 8 == 0; got {c_in} -> {c_out}, k={k}, u={u}")
+    return _gemm_geometry(c_in, u * c_out, -(-k // u), 1, f32, 1, True)
+
+
+def _gemm_geometry(c_in: int, c_out: int, taps: int, dil: int, f32: bool,
+                   epi_tiles: int, hold_input: bool) -> Q8Geometry:
+    """The tiling of one launch of the GEMM kernel: `c_out` columns, `taps`
+    shifted input rows `dil` apart, `epi_tiles` epilogue tiles (the
+    residual's and the output's, or the output's alone); with `hold_input`
+    the input ring holds every chunk of a tile (up to MAX_X_STAGES)."""
     nt = _q8_tile(c_out)
     mt = 1 if nt == 128 else 128 // nt
     rows = mt * 64 + (taps - 1) * dil
@@ -116,20 +144,30 @@ def int8_conv_geometry(c_in: int, c_out: int, taps: int, dil: int,
     chunk = min(CHUNK_SLICES, n_slices)
     # two input stages even for one chunk: the next tile's comes in while
     # the consumers work on this one's
-    x_stages = X_STAGES
+    n_chunks = -(-n_slices // CHUNK_SLICES)
+    x_stages = (n_chunks if hold_input and X_STAGES < n_chunks
+                <= MAX_X_STAGES else X_STAGES)
     tps = min(taps, 1 if nt == 128 else 128 // nt)
     x_ring = x_stages * chunk * rows_p * 16
     w_tile = tps * chunk * nt * 16
-    tiles = mt * 64 * (nt + 8) * (4 if f32 else 2) * 2
+    # the epilogue's tiles, and a pass's column scales and biases
+    tiles = mt * 64 * (nt + 8) * (4 if f32 else 2) * epi_tiles + COLUMN_BYTES
+
+    def smem_of(w_stages):
+        return x_ring + w_stages * w_tile + tiles + BARRIER_BYTES
+
+    # a shallower weight ring keeps two blocks an SM: 4 stages, else (for a
+    # held input) 3, else 2
     w_stages = W_STAGES
-    smem = x_ring + w_stages * w_tile + tiles + BARRIER_BYTES
-    if smem > TWO_BLOCKS:  # a shallower weight ring keeps two an SM
+    if smem_of(w_stages) > TWO_BLOCKS and hold_input:
+        w_stages = 3
+    if smem_of(w_stages) > TWO_BLOCKS:
         w_stages = 2
-        smem = x_ring + w_stages * w_tile + tiles + BARRIER_BYTES
+    smem = smem_of(w_stages)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"an int8 conv of C={c_in}, {taps} taps, dilation "
-                         f"{dil} needs {smem} bytes of shared memory, above "
-                         f"{SMEM_LIMIT}")
+        raise ValueError(f"an int8 conv of C={c_in} -> {c_out}, {taps} taps, "
+                         f"dilation {dil} needs {smem} bytes of shared "
+                         f"memory, above {SMEM_LIMIT}")
     return Q8Geometry(nt, mt, rows_p, n_slices, co_p, x_stages, w_stages, tps,
                       smem)
 
@@ -235,11 +273,15 @@ class QuantConv1d:
 
 class QuantConvTranspose1d:
     """A transposed conv's quantised kernel: `wq` int8 `[I, O, K]`, `scale`
-    f32 `[u, O]` by output phase. For the kernel, `packed` `[u, n, O, I]`
-    groups the taps by the phase they reach, `packed[p, i] = wq[:, :, p +
-    u * (n - 1 - i)].T` with n = ceil(K / u) and zeros past K, and
-    `packed_scale[p]` is the scale of the output phase `(p - padding) mod
-    u` those taps write."""
+    f32 `[u, O]` by output phase. For the kernel (Q2), the upsample is one
+    GEMM whose column `p * O + co` is output phase `p` of position m (row
+    `m * u + p - padding`) and channel co: `gemm_weight()` is that GEMM's
+    `[u * O, I, n]` kernel, n = ceil(K / u) taps over the input rows `m -
+    (n - 1) .. m`, its tap i and phase p holding `wq[:, co, p + u * (n - 1
+    - i)]` (zero past K); `packed` is it in Q1's layout
+    (`pack_int8_weight`), made once; `packed_scale` `[u, O]` and
+    `packed_bias` `[u * O]` (or None) are each column's scale, that of the
+    output phase `(p - padding) mod u` those taps write, and bias."""
 
     def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor],
                  stride: int, padding: int, per_phase: bool,
@@ -249,15 +291,23 @@ class QuantConvTranspose1d:
                                               per_phase)
         self.bias = None if bias is None else bias.detach().to(dtype)
         self.in_channels, self.out_channels, self.taps = weight.shape
-        n = -(-self.taps // stride)
-        padded = F.pad(self.wq, (0, n * stride - self.taps))
-        # [I, O, n(m), u(p)] -> [u, n (reversed m), O, I]
-        self.packed = padded.reshape(
-            self.in_channels, self.out_channels, n, stride).flip(2).permute(
-                3, 2, 1, 0).contiguous()
+        self.taps_per_phase = -(-self.taps // stride)
+        self.packed = pack_int8_weight(self.gemm_weight())
         phases = (torch.arange(stride, device=weight.device)
                   - padding) % stride
         self.packed_scale = self.scale[phases].contiguous()
+        self.packed_bias = (None if self.bias is None
+                            else self.bias.repeat(stride))
+
+    def gemm_weight(self) -> torch.Tensor:
+        """int8 `[u * O, I, n]`: row `p * O + co`, tap i is `wq[:, co, p +
+        u * (n - 1 - i)]`."""
+        n, u = self.taps_per_phase, self.stride
+        padded = F.pad(self.wq, (0, n * u - self.taps))
+        # [I, O, n (s), u (p)] -> [u, O, I, n reversed: tap i = n - 1 - s]
+        return padded.reshape(self.in_channels, self.out_channels, n,
+                              u).flip(2).permute(3, 1, 0, 2).reshape(
+                                  u * self.out_channels, self.in_channels, n)
 
     def out_length(self, t_in: int) -> int:
         return (t_in - 1) * self.stride - 2 * self.padding + self.taps
@@ -296,10 +346,13 @@ def int8_conv1d_reference(x: torch.Tensor, conv: QuantConv1d,
 
 def int8_conv_transpose1d_reference(x: torch.Tensor,
                                     conv: QuantConvTranspose1d,
-                                    slope: Optional[float] = None
+                                    slope: Optional[float] = None,
+                                    sx: Optional[torch.Tensor] = None
                                     ) -> torch.Tensor:
-    """Plain version: `x [B, T, C_in]` -> `[B, T_out, C_out]`."""
-    sx = row_scale_reference(x, slope)
+    """Plain version: `x [B, T, C_in]` -> `[B, T_out, C_out]`, with the
+    activation scale `sx` (default `row_scale_reference(x, slope)`)."""
+    if sx is None:
+        sx = row_scale_reference(x, slope)
     xq = _quantize_rows(x, slope, sx)
     acc = F.conv_transpose1d(xq.double().transpose(1, 2), conv.wq.double(),
                              stride=conv.stride, padding=conv.padding
@@ -313,12 +366,9 @@ def int8_conv_transpose1d_reference(x: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("int8_conv")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.int8_row_scale.argtypes = [ptr, ptr, i32, ctypes.c_longlong, f32,
-                                   i32, ptr]
-    lib.int8_conv_transpose1d.argtypes = ([ptr] * 6 + [i32] * 8
-                                          + [f32, i32, ptr])
-    for fn in (lib.int8_row_scale, lib.int8_conv_transpose1d):
-        fn.restype = ctypes.c_int
+    lib.int8_row_scale.argtypes = [ptr, ptr, ptr, i32, ptr, i32,
+                                   ctypes.c_longlong, f32, i32, ptr]
+    lib.int8_row_scale.restype = ctypes.c_int
     return lib
 
 
@@ -326,10 +376,14 @@ def _library() -> ctypes.CDLL:
 def _conv_library() -> ctypes.CDLL:
     lib = cuda_build.load("int8_mrf_conv")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geometry = ctypes.POINTER(ctypes.c_int)
     lib.int8_mrf_conv.argtypes = ([ptr, ptr, i32] + [ptr] * 6 + [i32] * 6
-                                  + [f32, f32, i32, i32,
-                                     ctypes.POINTER(ctypes.c_int), ptr])
-    lib.int8_mrf_conv.restype = ctypes.c_int
+                                  + [f32, f32, i32, i32, geometry, ptr])
+    lib.int8_conv_transpose1d.argtypes = ([ptr, ptr, i32] + [ptr] * 5
+                                          + [i32] * 8 + [f32, i32, geometry,
+                                                         ptr])
+    for fn in (lib.int8_mrf_conv, lib.int8_conv_transpose1d):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -337,6 +391,14 @@ def _conv_library() -> ctypes.CDLL:
 def _geometry_ints(c_in: int, c_out: int, taps: int, dil: int, f32: bool):
     """`int8_conv_geometry` as the C entry point takes it."""
     ints = int8_conv_geometry(c_in, c_out, taps, dil, f32)
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+@functools.lru_cache(maxsize=None)
+def _upsample_geometry_ints(c_in: int, c_out: int, k: int, u: int,
+                            f32: bool):
+    """`int8_upsample_geometry` as the C entry point takes it."""
+    ints = int8_upsample_geometry(c_in, c_out, k, u, f32)
     return (ctypes.c_int * len(ints))(*ints)
 
 
@@ -373,21 +435,34 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# Q0's ticket counters, one per (device, stream): zeroed once when made, and
+# zero again at the end of every launch (csrc/int8_conv.cu)
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+ROW_SCALE_BLOCKS = 128  # Q0's most blocks per row, its scratch per row
+
+
 def row_scale(x: torch.Tensor, slope: Optional[float] = None
               ) -> torch.Tensor:
     """Activation scales of `x [B, T, C]` after its leaky relu, f32 `[B]`,
-    computed on the device without a host sync."""
+    computed on the device in one launch, without a host sync."""
     if x.device.type == "cpu":
         return row_scale_reference(x, slope)
     _check_cuda_input(x, None, "row_scale")
     n = x.shape[1] * x.shape[2]
     if n % 4:
         raise ValueError("row_scale: T * C must be a multiple of 4")
+    stream = _stream(x)
+    key = (x.device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, device=x.device, dtype=torch.int32)
     sx = torch.empty(x.shape[0], device=x.device, dtype=torch.float32)
+    partial = torch.empty(x.shape[0] * ROW_SCALE_BLOCKS, device=x.device,
+                          dtype=torch.float32)
     err = _library().int8_row_scale(
-        x.data_ptr(), sx.data_ptr(), x.shape[0], n,
+        x.data_ptr(), sx.data_ptr(), partial.data_ptr(), ROW_SCALE_BLOCKS,
+        _TICKETS[key].data_ptr(), x.shape[0], n,
         1.0 if slope is None else slope, int(x.dtype == torch.bfloat16),
-        _stream(x))
+        stream)
     if err != 0:
         raise RuntimeError(f"int8_row_scale launch failed: CUDA error {err}")
     row_scale.launches += 1
@@ -395,6 +470,35 @@ def row_scale(x: torch.Tensor, slope: Optional[float] = None
 
 
 row_scale.launches = 0
+
+
+def _take_amax(v: torch.Tensor, slope: Optional[float],
+               amax_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain version of an epilogue's abs-max: `amax_out = max(amax_out,
+    max |lrelu(v)| per row)`; returns v."""
+    if amax_out is not None:
+        torch.maximum(amax_out,
+                      _lrelu(v, slope).abs().amax(dim=(1, 2)).float(),
+                      out=amax_out)
+    return v
+
+
+def _input_scale(x: torch.Tensor, slope: Optional[float],
+                 sx: Optional[torch.Tensor], x_amax: Optional[torch.Tensor],
+                 amax_out: Optional[torch.Tensor], name: str):
+    """For a kernel launch on `x`: (whether the scale is finished, the [B]
+    buffer to pass): `sx` where given, else the abs-max `x_amax` for the
+    kernel to finish, else one `row_scale` launch."""
+    for arg, other in (("sx", sx), ("x_amax", x_amax),
+                       ("amax_out", amax_out)):
+        if other is not None and not (
+                other.shape == (x.shape[0],) and other.dtype == torch.float32
+                and other.device == x.device and other.is_contiguous()):
+            raise ValueError(f"{name}: `{arg}` must be f32 [B] on "
+                             f"{x.device}")
+    if x_amax is not None:
+        return False, x_amax
+    return True, row_scale(x, slope) if sx is None else sx
 
 
 def _store(v: torch.Tensor, out: Optional[torch.Tensor], mode: int
@@ -433,12 +537,7 @@ def int8_conv1d(x: torch.Tensor, conv: QuantConv1d, dilation: int = 1,
             v = v + residual
         if mode != STORE:
             v = v * branch_scale
-        v = _store(v, out, mode)
-        if amax_out is not None:
-            torch.maximum(amax_out,
-                          _lrelu(v, slope).abs().amax(dim=(1, 2)).float(),
-                          out=amax_out)
-        return v
+        return _take_amax(_store(v, out, mode), slope, amax_out)
     _check_cuda_input(x, conv, "int8_conv1d")
     b, t, _ = x.shape
     geometry = _geometry_ints(conv.in_channels, conv.out_channels, conv.taps,
@@ -454,20 +553,12 @@ def int8_conv1d(x: torch.Tensor, conv: QuantConv1d, dilation: int = 1,
                 and other.dtype == x.dtype and other.device == x.device
                 and other.is_contiguous()):
             raise ValueError(f"int8_conv1d: `{name}` does not fit the output")
-    for name, other in (("sx", sx), ("x_amax", x_amax),
-                        ("amax_out", amax_out)):
-        if other is not None and not (
-                other.shape == (b,) and other.dtype == torch.float32
-                and other.device == x.device and other.is_contiguous()):
-            raise ValueError(f"int8_conv1d: `{name}` must be f32 [B] on "
-                             f"{x.device}")
     if out.data_ptr() == x.data_ptr():
         raise ValueError("int8_conv1d cannot write its own input")
-    finished = x_amax is None
-    if finished and sx is None:
-        sx = row_scale(x, slope)
+    finished, sx = _input_scale(x, slope, sx, x_amax, amax_out,
+                                "int8_conv1d")
     err = _conv_library().int8_mrf_conv(
-        x.data_ptr(), (sx if finished else x_amax).data_ptr(), int(finished),
+        x.data_ptr(), sx.data_ptr(), int(finished),
         conv.packed.data_ptr(), conv.scale.data_ptr(), _ptr(conv.bias),
         _ptr(residual), out.data_ptr(), _ptr(amax_out), b, t,
         conv.in_channels, conv.out_channels, conv.taps, dilation,
@@ -483,25 +574,46 @@ int8_conv1d.launches = 0
 
 
 def int8_conv_transpose1d(x: torch.Tensor, conv: QuantConvTranspose1d,
-                          slope: Optional[float] = None) -> torch.Tensor:
+                          slope: Optional[float] = None,
+                          sx: Optional[torch.Tensor] = None,
+                          x_amax: Optional[torch.Tensor] = None,
+                          amax_out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """int8 transposed conv (upsample) of `lrelu(x)`, `x [B, T, C_in]` ->
-    `[B, T_out, C_out]` in `x.dtype`, bias added in `x.dtype`. One
-    row-scale launch and one conv launch."""
+    `[B, T_out, C_out]` in `x.dtype`, bias added in `x.dtype`. The input's
+    scale, as for `int8_conv1d`: `sx` where given, else finished from the
+    abs-max `x_amax`, else one `row_scale` launch; `amax_out` ([B] f32,
+    zeroed by the caller) takes the max of `|lrelu(out)|` per row, the
+    scale of the stage that reads the output. One launch of the GEMM
+    kernel."""
+    if sx is not None and x_amax is not None:
+        raise ValueError("int8_conv_transpose1d takes `sx` or `x_amax`, not "
+                         "both")
     if x.device.type == "cpu":
-        return int8_conv_transpose1d_reference(x, conv, slope)
+        if x_amax is not None:
+            sx = _scale_of(x_amax)
+        return _take_amax(int8_conv_transpose1d_reference(x, conv, slope, sx),
+                          slope, amax_out)
     _check_cuda_input(x, conv, "int8_conv_transpose1d")
     b, t, _ = x.shape
     t_out = conv.out_length(t)
+    if conv.padding < 0 or t < 1 or t_out < 1:
+        raise ValueError(f"int8_conv_transpose1d: padding {conv.padding} and "
+                         f"lengths {t} -> {t_out} do not fit the kernel")
+    geometry = _upsample_geometry_ints(conv.in_channels, conv.out_channels,
+                                       conv.taps, conv.stride,
+                                       x.dtype == torch.float32)
+    finished, sx = _input_scale(x, slope, sx, x_amax, amax_out,
+                                "int8_conv_transpose1d")
     out = torch.empty(b, t_out, conv.out_channels, device=x.device,
                       dtype=x.dtype)
-    sx = row_scale(x, slope)
-    err = _library().int8_conv_transpose1d(
-        x.data_ptr(), sx.data_ptr(), conv.packed.data_ptr(),
-        conv.packed_scale.data_ptr(), _ptr(conv.bias), out.data_ptr(),
-        b, t, t_out, conv.in_channels, conv.out_channels,
-        conv.packed.shape[1], conv.stride, conv.padding,
+    err = _conv_library().int8_conv_transpose1d(
+        x.data_ptr(), sx.data_ptr(), int(finished), conv.packed.data_ptr(),
+        conv.packed_scale.data_ptr(), _ptr(conv.packed_bias), out.data_ptr(),
+        _ptr(amax_out), b, t, t_out, conv.in_channels, conv.out_channels,
+        conv.taps, conv.stride, conv.padding,
         1.0 if slope is None else slope, int(x.dtype == torch.bfloat16),
-        _stream(x))
+        geometry, _stream(x))
     if err != 0:
         raise RuntimeError(
             f"int8_conv_transpose1d launch failed: CUDA error {err}")

@@ -28,23 +28,11 @@ import torch.nn.functional as F
 from wetts_tpu_torch.models import mrf
 from wetts_tpu_torch.models.quant import STORE
 from wetts_tpu_torch.utils import cuda_build
+from wetts_tpu_torch.utils.profiling import cuda_ms
 
 BATCH = 4
 STAGES = ((256, 2816), (128, 22528), (64, 45056), (32, 90112))  # (C, T)
 KERNEL_SIZES, DILATIONS = (3, 7, 11), ((1, 3, 5),) * 3
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` runs, after a warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 @torch.no_grad()
@@ -63,21 +51,21 @@ def probe_stage(c: int, t: int, dtype: torch.dtype) -> dict:
     row = {"dtype": str(dtype).split(".")[1], "C": c, "T": t,
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "max_abs_plain": want.float().abs().max().item(),
-           "stage_ms": device_ms(
+           "stage_ms": cuda_ms(
                lambda: mrf.mrf_stage(h, stage, *args, packed=packed), 10)}
     ht = h.transpose(1, 2).contiguous()
     convs = [(w, k, d) for branch, k, dils in zip(stage, KERNEL_SIZES,
                                                   DILATIONS)
              for (w, _), d in zip(branch, [x for dil in dils
                                            for x in (dil, 1)])]
-    row["cudnn_convs_ms"] = device_ms(lambda: [
+    row["cudnn_convs_ms"] = cuda_ms(lambda: [
         F.conv1d(ht, w, padding=(k - 1) * d // 2, dilation=d)
         for w, k, d in convs], 3)
     launch = mrf._launcher(h)
     out = torch.empty_like(h)
     for k, d in ((3, 1), (11, 5)):
         wp, bias = packed[KERNEL_SIZES.index(k)][0]
-        row[f"conv_k{k}_d{d}_us"] = 1e3 * device_ms(
+        row[f"conv_k{k}_d{d}_us"] = 1e3 * cuda_ms(
             lambda: launch(h, wp, bias, k, d, h, out, STORE, 1.0), 20)
     return row
 
