@@ -36,8 +36,11 @@ Phases, each of which must pass (any failure exits non-zero):
 6. check each precision's GPU audio against the plain path on the CPU on a
    small input;
 7. hold kernel K2 (`maximum_path`, monotonic alignment search) exactly equal
-   to its plain PyTorch version at the shapes v1 training produces, and time
-   both;
+   to its plain PyTorch version at the shapes v1 training produces and at a
+   wide text, check that a call is one device kernel (torch.profiler), and
+   time both, K2 back to back and on the device alone, beside its bound (the
+   bytes, or the chain of dependent forward steps at the card's maximum SM
+   clock);
 8. train: write a seeded synthetic corpus (64 noise-like utterances of
    3.5-11 s, 4 speakers) to a temporary directory, build `Trainer` from
    v1.json as it stands (batch 32, segment 8192, f32) with seeded random
@@ -91,9 +94,10 @@ N_PHONES, N_SPEAKERS, SEED = 64, 4, 1234
 SYNTH_BATCHES = {"f32": 8, "bf16": 16, "int8": 16}
 BF16_ULP = 2.0 ** -8
 # K2 at the [B, T_spec, T_text] shapes v1 training produces (batch 32, frame
-# buckets up to 1000, text padded to a multiple of 16), a 1x1 and a square
-MAS_SHAPES = ((32, 400, 64), (32, 700, 128), (32, 1000, 208), (2, 1, 1),
-              (4, 48, 48))
+# buckets up to 1000, text padded to a multiple of 16; the `kernels` line
+# sums these), a wide text (several DP warps a block), a 1x1 and a square
+MAS_V1_SHAPES = ((32, 400, 64), (32, 700, 128), (32, 1000, 208))
+MAS_SHAPES = MAS_V1_SHAPES + ((16, 1000, 512), (2, 1, 1), (4, 48, 48))
 TRAIN_UTTERANCES, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 64, 1, 4
 
 
@@ -715,27 +719,78 @@ def mas_inputs(b: int, t_spec: int, t_text: int, gen: torch.Generator):
     return neg_cent, mask
 
 
-def mas_bound_ms(mask: torch.Tensor) -> float:
-    """The least time the card could take for MAS on these inputs: the
-    larger of bytes over the memory rate (the valid cells of neg_cent read
-    once, the path written once, 4 bytes each) and operations over the f32
-    rate (one add and one max per valid cell). Bytes win by far."""
-    valid = float(mask.sum().item())
-    nbytes = 4.0 * (valid + mask.numel())
-    return 1e3 * max(nbytes / PEAK_BYTES, 2.0 * valid / PEAK_F32_FLOPS)
+# the least latency of one dependent f32 operation (fmaxf, fadd) on
+# Hopper's CUDA cores, in SM cycles
+DEPENDENT_OP_CYCLES = 4
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return 1e6 * float(out)
+
+
+def mas_bound(neg_cent: torch.Tensor, mask: torch.Tensor, clock_hz: float):
+    """The least time the card could take for MAS on these inputs, in ms,
+    and what sets it: the larger of
+    - bytes over the memory rate: the valid cells of neg_cent and of the
+      mask read once (the -1e9 fill needs both), every cell of the path
+      written once;
+    - the dependency chain: the longest utterance's t_spec rows, each a
+      forward step (a dependent fmaxf then fadd), at the card's maximum SM
+      clock.
+    A recurrence of t_spec rows cannot beat the chain however many SMs
+    share the batch. The backtracking is not in the chain: once the forward
+    pass is done, the walk is a composition of per-row maps (index ->
+    index - bit), which pointer doubling takes in log2(t_spec) rounds."""
+    valid = float(mask.bool().sum().item())
+    t_spec = int(mask[:, :, 0].float().sum(dim=1).max().item())
+    nbytes = ((neg_cent.element_size() + mask.element_size()) * valid
+              + 4.0 * mask.numel())
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    chain_ms = 1e3 * max(t_spec, 1) * 2 * DEPENDENT_OP_CYCLES / clock_hz
+    return {"bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "chain",
+            "bytes_ms": bytes_ms, "chain_ms": chain_ms}
+
+
+def kernels_per_call(fn, calls: int = 4, sessions: int = 3) -> int:
+    """Device kernels one fn() call runs, from torch.profiler's trace of the
+    card (CUPTI) over `calls` calls. A session whose trace holds no device
+    activity at all (CUPTI's records lost, as seen now and then on an
+    H100) is taken again, up to `sessions` times; then, or if the kernels
+    are not a whole multiple of the calls, it fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            check(len(names) % calls == 0,
+                  f"{len(names)} device kernels over {calls} calls: {names}")
+            return len(names) // calls
+        print(f"profiler: no device activity in a session of {calls} calls")
+    check(False, f"the profiler saw no device kernel in {sessions} sessions")
 
 
 def phase_mas_kernel():
-    """K2 against its plain version at the v1 training shapes: exactly equal;
-    both timed with CUDA events (the plain version, a Python loop of T_spec
-    steps, once)."""
-    from wetts_tpu_torch.ops.mas import (
-        _launch,
-        _prepare,
-        maximum_path,
-        maximum_path_reference,
-    )
+    """K2 against its plain version at the v1 training shapes and a wide
+    one: exactly equal; the call timed back to back and on the device alone
+    (the plain version, a Python loop of T_spec steps, once); one device
+    kernel per call."""
+    from wetts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
 
+    clock_hz = max_sm_clock_hz()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for b, t_spec, t_text in MAS_SHAPES:
@@ -754,19 +809,18 @@ def phase_mas_kernel():
                            f"from the plain version")
         check(bool((got.sum(-1) == mask[:, :, 0]).all()),
               "K2: not one text position per valid frame")
-        ms = cuda_ms(lambda: maximum_path(neg_cent, mask), 20)
-        # the kernel's launch alone, on prepared inputs: `ms` above also
-        # holds the wrapper's plain PyTorch part (lengths, the -1e9 fill,
-        # the final `* mask`), a dozen small launches that the host may
-        # enqueue more slowly than the card runs them
-        masked, _, t_xs, t_ys = _prepare(neg_cent, mask)
-        kernel_ms = cuda_ms(lambda: _launch(masked, t_xs, t_ys), 20)
+        call = lambda: maximum_path(neg_cent, mask)  # noqa: E731
+        n_kernels = kernels_per_call(call)
+        check(n_kernels == 1, f"K2 {b}x{t_spec}x{t_text}: {n_kernels} device "
+                              f"kernels a call, not 1")
+        ms = cuda_ms(call, 20)
+        dev_ms = device_ms(call)
         row = {"B": b, "T_spec": t_spec, "T_text": t_text,
                "max_abs_err": float((got - want).abs().max().item()),
-               "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": mas_bound_ms(mask), "bound_by": "bytes",
-               "kernel_ms": kernel_ms,
-               "us_per_row": 1e3 * kernel_ms / t_spec}
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               **mas_bound(neg_cent, mask, clock_hz),
+               "kernels_per_call": n_kernels,
+               "us_per_row": 1e3 * dev_ms / t_spec}
         print("K2 shape " + json.dumps(row))
         rows.append(row)
     return rows
@@ -1172,10 +1226,15 @@ def main() -> int:
     training, train_launches = phase_training(cfg)
     print("training " + json.dumps(training))
     print("train_reference " + json.dumps(phase_train_reference()))
-    v1_rows = [r for r in mas_rows if r["B"] == 32]
+    v1_rows = [r for r in mas_rows
+               if (r["B"], r["T_spec"], r["T_text"]) in MAS_V1_SHAPES]
 
     def total(rows_, key):
         return sum(r[key] for r in rows_)
+
+    # the chain of dependent operations is a bound by operations
+    mas_bound_by = ("bytes" if total(v1_rows, "bytes_ms")
+                    >= total(v1_rows, "chain_ms") else "operations")
 
     def kernel(name, source, replaces, n, rows_, bound_by, library=None,
                ms_key="ms"):
@@ -1208,7 +1267,7 @@ def main() -> int:
                launches_bf16["mrf_stage"], rows_bf16, "operations",
                total(rows_bf16, "library_ms")),
         kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
-               train_launches["mas"], v1_rows, "bytes"),
+               train_launches["mas"], v1_rows, mas_bound_by),
         kernel("int8_conv", "int8_mrf_conv.cu", q8,
                launches_int8["int8_conv"], q["stage"], "operations",
                total(q["stage"], "library_ms")),

@@ -17,7 +17,7 @@ version's convolutions in TF32).
 import pytest
 import torch
 
-from chip_smoke import phase_train_reference, random_init_
+from chip_smoke import kernels_per_call, phase_train_reference, random_init_
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.models.mrf import (
     KERNEL_TAPS,
@@ -174,8 +174,11 @@ def _mas_case(seed, b, t_spec, t_text, ragged):
 @pytest.mark.parametrize("b,t_spec,t_text,ragged", [
     (3, 40, 17, False), (6, 64, 23, True), (2, 9, 9, False),
     (2, 1, 1, False), (32, 400, 64, True), (32, 1000, 208, True),
-    (2, 900, 700, True),  # T_text beyond one block: the strided loop
+    (2, 900, 700, True),  # three DP warps, bits in the scratch buffer
     (1, 20000, 40, True),  # decision bits in the scratch buffer
+    (4, 700, 512, True),  # four DP warps of 128 columns
+    (2, 1200, 1100, True),  # five DP warps of 256 columns
+    (1, 1, 1, False), (3, 1, 5, False),
 ])
 def test_mas_kernel_equals_plain(cuda, b, t_spec, t_text, ragged):
     """K2 against the plain version on the same inputs: exactly equal."""
@@ -189,6 +192,79 @@ def test_mas_kernel_equals_plain(cuda, b, t_spec, t_text, ragged):
     assert torch.equal(got, maximum_path_reference(neg_cent, mask))
 
 
+def _mas_holes(mask, seed):
+    """Knock out a tenth of the cells inside each valid corner, row 0 and
+    column 0 excepted (they set the lengths): there the -1e9 fill decides."""
+    gen = torch.Generator().manual_seed(seed)
+    holes = torch.rand(mask.shape, generator=gen) < 0.1
+    holes[:, 0, :] = False
+    holes[:, :, 0] = False
+    return mask * ~holes
+
+
+@pytest.mark.parametrize("kind", ["bool", "holes", "bool_holes",
+                                  "non_contiguous", "bf16", "int_mask",
+                                  "bool_odd", "bool_offset"])
+def test_mas_kernel_takes_what_the_plain_version_takes(cuda, kind):
+    """Masks as bool, with holes, scores non-contiguous or bf16, a mask of
+    another type, a bool mask whose rows are not 4-byte aligned or that
+    starts at an odd byte: one launch, exactly equal to the plain
+    version."""
+    shape = (5, 130, 37) if kind == "bool_odd" else (6, 300, 96)
+    neg_cent, mask = _mas_case(11, *shape, True)
+    if "holes" in kind:
+        mask = _mas_holes(mask, 12)
+    if "bool" in kind:
+        mask = mask.bool()
+    if kind == "int_mask":
+        mask = mask.int()
+    neg_cent, mask = neg_cent.to(cuda), mask.to(cuda)
+    if kind == "bool_offset":
+        storage = torch.zeros(mask.numel() + 1, dtype=torch.bool, device=cuda)
+        mask = storage[1:].view(mask.shape).copy_(mask)
+    if kind == "non_contiguous":
+        neg_cent = neg_cent.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not neg_cent.is_contiguous()
+    if kind == "bf16":
+        neg_cent = neg_cent.bfloat16()
+    before = maximum_path.launches
+    got = maximum_path(neg_cent, mask)
+    torch.cuda.synchronize()
+    assert maximum_path.launches - before == 1
+    assert torch.equal(got, maximum_path_reference(neg_cent, mask))
+
+
+def test_mas_kernel_is_one_device_kernel(cuda):
+    """f32 contiguous scores with an f32 or a bool mask: the call's only
+    device work is K2 (no cast, no fill, no `* mask`, no memset)."""
+    neg_cent, mask = _mas_case(13, 32, 400, 64, True)
+    neg_cent, mask = neg_cent.to(cuda), mask.to(cuda)
+    as_bool = mask.bool()
+    assert kernels_per_call(lambda: maximum_path(neg_cent, mask)) == 1
+    assert kernels_per_call(lambda: maximum_path(neg_cent, as_bool)) == 1
+
+
+def test_mas_kernel_replays_in_a_cuda_graph(cuda):
+    """No host synchronisation is left: the call is captured in a CUDA graph
+    and replayed on new scores in the same buffers to the plain result."""
+    neg_cent, mask = _mas_case(14, 8, 500, 128, True)
+    neg_cent, mask = neg_cent.to(cuda), mask.to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        maximum_path(neg_cent, mask)  # warm-up: build, load, attributes
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = maximum_path(neg_cent, mask)
+    for seed in (15, 16):
+        fresh, _ = _mas_case(seed, 8, 500, 128, True)
+        neg_cent.copy_(fresh.to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, maximum_path_reference(neg_cent, mask))
+
+
 def test_mas_kernel_with_ties_and_an_empty_mask(cuda):
     """Integer scores make equal candidates common (the strict `<` decides);
     an all-zero mask clamps the lengths to 1."""
@@ -199,6 +275,23 @@ def test_mas_kernel_with_ties_and_an_empty_mask(cuda):
     got = maximum_path(neg_cent, mask)
     assert torch.equal(got, maximum_path_reference(neg_cent, mask))
     assert not got[3].any()
+
+
+@pytest.mark.parametrize("seed,t_spec,t_text,ties", [
+    (51, 100, 17, False), (52, 150, 100, False), (53, 90, 70, True),
+    (54, 33, 33, True), (56, 200, 5, True), (57, 65, 65, False),
+    (58, 64, 64, True), (59, 300, 260, True),
+])
+def test_mas_kernel_walk_edges(cuda, seed, t_spec, t_text, ties):
+    """Shapes where the walk is easy to get wrong: ties, an index that
+    crosses a 32-column word inside a 32-row round, and the diagonal
+    (t_spec == t_text: the index steps on every row)."""
+    neg_cent, mask = _mas_case(seed, 1, t_spec, t_text, False)
+    if ties:
+        neg_cent = torch.round(neg_cent / 3)
+    neg_cent, mask = neg_cent.to(cuda), mask.to(cuda)
+    got = maximum_path(neg_cent, mask)
+    assert torch.equal(got, maximum_path_reference(neg_cent, mask))
 
 
 def test_train_step_on_gpu_matches_cpu(cuda):

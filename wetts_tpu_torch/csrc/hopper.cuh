@@ -7,9 +7,10 @@
 // 128 bytes apart and K slices `rows * 16` bytes apart. One wgmma step reads
 // two K slices (16 bf16, 8 tf32 or 32 int8 values of each row), and
 // shifting the operand by whole rows is a change of its descriptor's start
-// address. Included by mrf_stage.cu (K1), int8_mrf_conv.cu (Q1) and
-// int8_chain.cu (K3); each builds into its own library, so everything here
-// has internal linkage.
+// address. Included by mrf_stage.cu (K1), int8_mrf_conv.cu (Q1),
+// int8_chain.cu (K3) and mas.cu (K2: mbarriers, the timed spin and bulk
+// copies only); each
+// builds into its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -48,10 +49,23 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// wait until the barrier's phase differs from `parity`; a wait of more than
-// two seconds is a broken hand-over and traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  unsigned long long start = 0;
+// a spin of more than two seconds is a broken hand-over: trap rather than
+// hang the card. Called now and then from a spin loop, with `since` 0 at
+// the loop's start
+__device__ __forceinline__ void trap_if_stuck(unsigned long long* since) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+  if (*since == 0) *since = now;
+  else if (now - *since > 2000000000ull) __trap();
+}
+
+// wait until the barrier's phase differs from `parity`, trapping after two
+// seconds. A thread that expects to wait long passes `sleep_ns`: it sleeps
+// between tries, so that its spinning takes no issue slots from the warps
+// that share its scheduler
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity,
+                                          unsigned sleep_ns = 0) {
+  unsigned long long since = 0;
   for (uint32_t spins = 0;; ++spins) {
     uint32_t done;
     asm volatile(
@@ -60,12 +74,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
-    if ((spins & 63) == 63) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (start == 0) start = now;
-      else if (now - start > 2000000000ull) __trap();
-    }
+    if (sleep_ns) __nanosleep(sleep_ns);
+    if ((spins & 63) == 63) trap_if_stuck(&since);
   }
 }
 

@@ -11,12 +11,13 @@ backtracking from (t_spec - 1, t_text - 1), stepping left when index == y or
 the JAX package), no gradient.
 
 - `maximum_path` is the wrapper: on a CUDA tensor it launches the
-  hand-written kernel `csrc/mas.cu` once (forward DP and backtracking in one
-  launch) and counts the launch in `maximum_path.launches`; on a CPU tensor
-  it runs the plain version. It never falls back from the kernel. The input
-  preparation (lengths from the mask, the -1e9 fill) and the final `* mask`
-  are plain PyTorch, as they lie outside the Pallas body in the JAX package;
-  the lengths stay on the device and nothing synchronises with the host.
+  hand-written kernel `csrc/mas.cu` once and counts the launch in
+  `maximum_path.launches`; on a CPU tensor it runs the plain version. It
+  never falls back from the kernel. The one launch does all of what the
+  JAX package does around its Pallas body too: the lengths from the mask,
+  the -1e9 fill and the final `* mask`. Scores in another type than f32,
+  or not contiguous, are cast or copied first (`kernel_inputs`); the host
+  never waits for the device, so a call can be captured in a CUDA graph.
 - `maximum_path_reference` is the plain PyTorch version, a loop over spec
   frames on [B, T_text] rows and the reverse walk: the kernel's oracle.
 
@@ -34,15 +35,13 @@ import torch
 from wetts_tpu_torch.utils import cuda_build
 
 _NEG = -1e9
-# dynamic shared memory the kernel may ask for (an H100 block can opt in to
-# 227 KB); above it the decision bits go to a scratch buffer instead
-SHARED_LIMIT_BYTES = 200 * 1024
 
 
 def _prepare(neg_cent: torch.Tensor, mask: torch.Tensor
              ) -> Tuple[torch.Tensor, ...]:
-    """(masked scores, mask as f32, t_text [B] int32, t_spec [B] int32);
-    lengths are clamped to at least 1."""
+    """The plain version's inputs, as the JAX package makes them: (masked
+    scores, mask as f32, t_text [B] int32, t_spec [B] int32); lengths are
+    clamped to at least 1."""
     neg_cent = neg_cent.float()
     mask_f = mask.float()
     t_text = torch.clamp_min(mask_f[:, 0, :].sum(dim=1).to(torch.int32), 1)
@@ -92,38 +91,23 @@ def maximum_path_reference(neg_cent: torch.Tensor, mask: torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("mas")
-    lib.mas_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.mas_f32.restype = ctypes.c_int
-    lib.mas_shared_bytes.argtypes = [ctypes.c_int] * 3
-    lib.mas_shared_bytes.restype = ctypes.c_longlong
+    lib.mas.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.mas.restype = ctypes.c_int
+    lib.mas_scratch_words.argtypes = [ctypes.c_int] * 3
+    lib.mas_scratch_words.restype = ctypes.c_longlong
     return lib
 
 
-def _launch(masked: torch.Tensor, t_text: torch.Tensor,
-            t_spec_len: torch.Tensor) -> torch.Tensor:
-    """The kernel alone: masked scores [B, T_spec, T_text] (contiguous f32
-    on the GPU) and int32 lengths [B] -> the 0/1 path, every cell written."""
-    b, t_spec, t_x = masked.shape
-    lib = _library()
-    scratch = None
-    if lib.mas_shared_bytes(t_spec, t_x, 1) > SHARED_LIMIT_BYTES:
-        if lib.mas_shared_bytes(t_spec, t_x, 0) > SHARED_LIMIT_BYTES:
-            raise ValueError(f"the MAS kernel stages its rows in shared "
-                             f"memory; T_text={t_x} is too wide for it")
-        scratch = torch.empty((b, t_spec, (t_x + 31) // 32 + 1),
-                              dtype=torch.int32, device=masked.device)
-    path = torch.empty_like(masked)
-    with torch.cuda.device(masked.device):
-        err = lib.mas_f32(
-            masked.data_ptr(), t_text.data_ptr(), t_spec_len.data_ptr(),
-            path.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            b, t_spec, t_x,
-            torch.cuda.current_stream(masked.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mas_f32 launch failed: CUDA error {err}")
-    maximum_path.launches += 1
-    return path
+def kernel_inputs(neg_cent: torch.Tensor, mask: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the kernel reads: f32 contiguous scores, and the mask as it is
+    where it is f32 or bool, contiguous; otherwise as f32. A tensor that is
+    already so is passed on as it is, with no copy and no launch."""
+    if mask.dtype != torch.bool:
+        mask = mask.float()
+    return neg_cent.float().contiguous(), mask.contiguous()
 
 
 @torch.no_grad()
@@ -131,8 +115,11 @@ def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Best monotonic alignment path maximizing the sum of neg_cent.
 
     neg_cent: [B, T_spec, T_text] scores; mask: the same shape, the outer
-    product of the spec and text masks. Returns the float 0/1 path, zero
-    outside the mask; it never requires grad (MAS has no gradient).
+    product of the spec and text masks (float or bool). Returns the float
+    0/1 path, zero outside the mask; it never requires grad (MAS has no
+    gradient). On a CUDA tensor one launch of K2 does everything (for f32
+    contiguous scores and an f32 or bool mask, that launch is the call's
+    only device work); the host never waits for the device.
     """
     if neg_cent.ndim != 3 or mask.shape != neg_cent.shape:
         raise ValueError(f"maximum_path takes neg_cent and mask of one "
@@ -148,8 +135,26 @@ def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                          f"{neg_cent.device}")
     if 0 in neg_cent.shape:
         raise ValueError(f"empty MAS input {tuple(neg_cent.shape)}")
-    masked, mask_f, t_text, t_spec_len = _prepare(neg_cent, mask)
-    return _launch(masked.contiguous(), t_text, t_spec_len) * mask_f
+    nc, mask = kernel_inputs(neg_cent, mask)
+    b, t_spec, t_x = nc.shape
+    lib = _library()
+    mask_bytes = mask.element_size()
+    words = lib.mas_scratch_words(t_spec, t_x, mask_bytes)
+    if words < 0:
+        raise ValueError(f"the MAS kernel carries at most 4096 text "
+                         f"positions; T_text={t_x}")
+    scratch = (torch.empty(b * words, dtype=torch.int32, device=nc.device)
+               if words else None)
+    path = torch.empty_like(nc)
+    with torch.cuda.device(nc.device):
+        err = lib.mas(
+            nc.data_ptr(), mask.data_ptr(), mask_bytes, path.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, t_spec, t_x,
+            torch.cuda.current_stream(nc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mas launch failed: CUDA error {err}")
+    maximum_path.launches += 1
+    return path
 
 
 maximum_path.launches = 0
