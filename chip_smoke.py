@@ -63,8 +63,10 @@ import base64
 import concurrent.futures
 import contextlib
 import copy
+import http.client
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -99,6 +101,24 @@ BF16_ULP = 2.0 ** -8
 MAS_V1_SHAPES = ((32, 400, 64), (32, 700, 128), (32, 1000, 208))
 MAS_SHAPES = MAS_V1_SHAPES + ((16, 1000, 512), (2, 1, 1), (4, 48, 48))
 TRAIN_UTTERANCES, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 64, 1, 4
+# streaming: chunks of block + 2 * pad = 60 frames, decoded alone (the first)
+# or stacked up to 64 rows; a stream is STREAM_CLAUSES clauses of about 4 s
+# (one encode; 1 + 64 + the rest chunks), STREAM_RUNS streams per precision
+# and path after a warm-up one: enough for a p95 of first-chunk latency and
+# of RTF (a percentile of fewer samples is their maximum, no tail)
+CHUNK_BATCHES = (1, 64)
+STREAM_CLAUSES, STREAM_RUNS, STREAM_HANZI = 8, 20, 20
+# the English word of a streamed text; its ARPAbet phones are in the
+# streaming phone table, so its ids reach the synthesizer
+STREAM_ENGLISH = "hello"
+# ARPAbet: 15 vowels with stress 0-2 and 24 consonants, what G2pEn gives
+ARPABET = [f"{v}{s}" for v in ("AA AE AH AO AW AY EH ER EY IH IY OW OY UH "
+                               "UW").split() for s in range(3)] + (
+    "B CH D DH F G HH JH K L M N NG P R S SH T TH V W Y Z ZH").split()
+# audio seconds a streamed clause is given: the phase sets length_scale so
+# that its clauses of STREAM_HANZI hanzi (some 60 phones and prosody marks)
+# average this long, within 10%, on the seeded weights
+STREAM_CLAUSE_S = 4.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -135,9 +155,10 @@ def conv_dilations(kind: str, dils) -> list:
     return [d for dil in dils for d in ((dil, 1) if kind == "1" else (dil,))]
 
 
-def stage_shapes(gen_cfg):
-    """(stage, T, C) of the four MRF stages at the decode bucket."""
-    t = FRAME_BUCKET
+def stage_shapes(gen_cfg, frames: int = FRAME_BUCKET):
+    """(stage, T, C) of the four MRF stages at `frames` decoder frames (the
+    decode bucket unless told otherwise)."""
+    t = frames
     for i, u in enumerate(gen_cfg.upsample_rates):
         t *= u
         yield i, t, gen_cfg.upsample_initial_channel // 2 ** (i + 1)
@@ -581,6 +602,139 @@ def random_init_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 (v * v).sum(dim=tuple(range(1, v.ndim)), keepdim=True)))
             module.fold_()
     return model
+
+
+@torch.no_grad()
+def phase_chunk_kernels(model, gen_cfg):
+    """K1 (f32 and bf16), the int8 stage (Q1, its input's scale from an
+    abs-max, its output's taken in the last conv's epilogue), the int8
+    upsample Q2 and the row scale Q0 against their plain versions at the
+    shapes the streamed decoder gives them: B = 1 (the first chunk) and
+    B = 64 (a full tail stack) of 60-frame chunks, so T = 480, 3840, 7680
+    and 15360 samples, none of them a multiple of the 128-row tile. The
+    tolerances are those of the kernel phases. Timed back to back (`ms`),
+    the plain version once."""
+    from wetts_tpu_torch.models.layers import LRELU_SLOPE
+    from wetts_tpu_torch.models.mrf import (
+        mrf_stage,
+        mrf_stage_int8,
+        mrf_stage_int8_reference,
+        mrf_stage_reference,
+        pack_stage,
+    )
+    from wetts_tpu_torch.models.quant import (
+        int8_conv_transpose1d,
+        int8_conv_transpose1d_reference,
+        row_scale,
+        row_scale_reference,
+        upsample_scale_per_phase,
+    )
+    from wetts_tpu_torch.serving.streaming import DEFAULT_BLOCK, DEFAULT_PAD
+
+    frames = DEFAULT_BLOCK + 2 * DEFAULT_PAD
+    kind = gen_cfg.resblock
+    ks = tuple(gen_cfg.resblock_kernel_sizes)
+    ds = tuple(tuple(d) for d in gen_cfg.resblock_dilation_sizes)
+    red8, red16 = model.dec.reduced("int8"), model.dec.reduced("bf16")
+    per_phase = upsample_scale_per_phase(
+        gen_cfg.upsample_initial_channel, gen_cfg.upsample_rates, frames)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for b in CHUNK_BATCHES:
+        x = torch.randn(b, frames, gen_cfg.upsample_initial_channel,
+                        device="cuda", generator=gen).to(torch.bfloat16)
+        check(torch.equal(row_scale(x, LRELU_SLOPE),
+                          row_scale_reference(x, LRELU_SLOPE)),
+              f"the row scale at B={b} differs from the plain version")
+        rows.append({"kernel": "int8_row_scale", "B": b, "T": frames,
+                     "C": x.shape[2], "max_abs_err": 0.0,
+                     "ms": cuda_ms(lambda: row_scale(x, LRELU_SLOPE), 10)})
+        for i, t, c in stage_shapes(gen_cfg, frames):
+            # Q2: the upsample into this stage, from a finished row scale
+            up = red8.quantized_up(model.dec, i, per_phase[i])
+            sx = row_scale(x, LRELU_SLOPE)
+            got = int8_conv_transpose1d(x, up, LRELU_SLOPE, sx=sx)
+            want = int8_conv_transpose1d_reference(x, up, LRELU_SLOPE)
+            ulps = _ulps(got, want)
+            check(got.shape == (b, t, c) and ulps <= 2.0,
+                  f"int8 upsample {i} at B={b}: {ulps} ulps from the plain "
+                  f"version")
+            rows.append({
+                "kernel": "int8_conv_transpose", "stage": i, "B": b,
+                "T_in": x.shape[1], "T": t, "C": c, "ulps": ulps,
+                "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                "ms": cuda_ms(lambda: int8_conv_transpose1d(
+                    x, up, LRELU_SLOPE, sx=sx), 5)})
+            x = torch.randn(b, t, c, device="cuda", generator=gen)
+            for name, dtype in (("mrf_stage", torch.float32),
+                                ("mrf_stage_bf16", torch.bfloat16)):
+                stage = (model.dec.stage_convs(i) if dtype == torch.float32
+                         else red16.stages[i])
+                packed = pack_stage(stage)
+                h = x.to(dtype)
+                got = mrf_stage(h, stage, kind, ks, ds, packed=packed)
+                want = mrf_stage_reference(h, stage, kind, ks, ds)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                tol = (8 * BF16_ULP if dtype == torch.bfloat16
+                       else 1e-4) * scale
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"{name} stage {i} at B={b}: max |kernel - plain| "
+                      f"{err} > {tol}")
+                rows.append({
+                    "kernel": name, "stage": i, "B": b, "T": t, "C": c,
+                    "max_abs_err": err, "max_abs_plain": scale,
+                    "ms": cuda_ms(lambda: mrf_stage(
+                        h, stage, kind, ks, ds, packed=packed), 5),
+                    "plain_ms": cuda_ms(lambda: mrf_stage_reference(
+                        h, stage, kind, ks, ds), 1)})
+            h = x.to(torch.bfloat16)
+            x_amax = torch.nn.functional.leaky_relu(
+                h, LRELU_SLOPE).abs().amax(dim=(1, 2)).float()
+            amax = torch.zeros(b, device="cuda")
+            got = mrf_stage_int8(h, red8.stages[i], kind, ds, x_amax=x_amax,
+                                 amax_out=amax)
+            want = mrf_stage_int8_reference(h, red8.stages[i], kind, ds)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            check(bool(torch.isfinite(got).all()) and err <= scale / 127.0,
+                  f"int8 stage {i} at B={b}: max |kernel - plain| {err} > "
+                  f"{scale} / 127")
+            rows.append({
+                "kernel": "int8_conv", "stage": i, "B": b, "T": t, "C": c,
+                "max_abs_err": err, "max_abs_plain": scale,
+                "ms": cuda_ms(lambda: mrf_stage_int8(
+                    h, red8.stages[i], kind, ds, x_amax=x_amax,
+                    amax_out=amax), 5),
+                "plain_ms": cuda_ms(lambda: mrf_stage_int8_reference(
+                    h, red8.stages[i], kind, ds), 1)})
+            x = got
+    for row in rows:
+        print("chunk kernel " + json.dumps(row))
+    return rows
+
+
+def frontend_tables():
+    """The Mandarin/English frontend's tables from the port's vendored
+    assets: (vocab, lexicon, pinyin2id, pinyin2phones, English G2P,
+    phone2id). The vocabulary is [PAD], [CLS], [SEP], [UNK] and the hanzi
+    of pinyin_dict.txt (bert-base-chinese's vocab.txt is not in the repo);
+    the phone table is `sil`, phones.list, the prosody marks #0-#4 and the
+    ARPAbet phones of English words."""
+    from wetts_tpu_torch.assets import cmudict_path, lexicon_path
+    from wetts_tpu_torch.cli.frontend import read_list
+    from wetts_tpu_torch.text.g2p_en import G2pEn
+    from wetts_tpu_torch.text.lexicon import Lexicon, read_pinyin2phones
+
+    lexicon = Lexicon(lexicon_path("pinyin_dict.txt"))
+    vocab = {t: i for i, t in enumerate(
+        ["[PAD]", "[CLS]", "[SEP]", "[UNK]"] + list(lexicon.words()))}
+    with open(lexicon_path("phones.list"), encoding="utf8") as f:
+        phones = (["sil"] + f.read().split() + [f"#{i}" for i in range(5)]
+                  + ARPABET)
+    return (vocab, lexicon, read_list(lexicon_path("polyphone.txt")),
+            read_pinyin2phones(lexicon_path("lexicon.txt")),
+            G2pEn(cmudict_path()), {p: i for i, p in enumerate(phones)})
 
 
 def build_engine(cfg, **options):
@@ -1147,6 +1301,345 @@ def serve_precision(cfg, name: str, options: dict, rng_seed: int,
     return audios, synth, launches
 
 
+def spread(xs) -> dict:
+    """n, min, p50, max of a sample, and p95 where there are at least 20
+    values (of fewer, a p95 is about their maximum, not a tail)."""
+    xs = np.asarray(xs, float)
+    out = {"n": int(xs.size), "min": float(xs.min()),
+           "p50": float(np.percentile(xs, 50)), "max": float(xs.max())}
+    if xs.size >= 20:
+        out["p95"] = float(np.percentile(xs, 95))
+    return out
+
+
+def stream_text(rng, hanzi, n_clauses: int) -> str:
+    """Seeded Mandarin text: clauses of STREAM_HANZI hanzi of the vendored
+    dictionary with a comma inside, the second with an English word, each
+    ended by 。 (a clause of its own)."""
+    clauses = []
+    for k in range(n_clauses):
+        chars = [hanzi[int(i)]
+                 for i in rng.integers(0, len(hanzi), STREAM_HANZI)]
+        chars.insert(STREAM_HANZI // 2, "，")
+        if k == 1:
+            chars.insert(4, STREAM_ENGLISH)
+        clauses.append("".join(chars) + "。")
+    return "".join(clauses)
+
+
+class TimedScorer:
+    """The frontend's scorer with the host milliseconds of each call (a
+    call ends in a copy to the host, so a device sync)."""
+
+    def __init__(self, scorer):
+        self.scorer, self.ms = scorer, []
+
+    def __call__(self, token_ids):
+        t0 = time.perf_counter()
+        out = self.scorer(token_ids)
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+
+def read_stream(port: int, text: str):
+    """GET /stream: (int16 samples, ms from the request to the first chunk
+    on the host)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    t0 = time.perf_counter()
+    conn.request("GET", "/stream?" + urllib.parse.urlencode(
+        {"text": text, "name": "spk1"}))
+    resp = conn.getresponse()
+    check(resp.status == 200 and
+          resp.getheader("Transfer-Encoding") == "chunked",
+          f"/stream answered {resp.status}")
+    first, body = None, b""
+    while True:
+        data = resp.read1(1 << 16)
+        if not data:
+            break
+        if first is None:
+            first = 1e3 * (time.perf_counter() - t0)
+        body += data
+    conn.close()
+    return np.frombuffer(body, np.int16), first
+
+
+def http_wav(port: int, text: str) -> np.ndarray:
+    """GET / and the int16 PCM of the WAV it answers."""
+    query = urllib.parse.urlencode({"text": text, "name": "spk1"})
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/?{query}",
+                                timeout=120) as resp:
+        body = json.loads(resp.read())
+    check(body["status"] == "ok", f"server said {body}")
+    with wave.open(io.BytesIO(base64.b64decode(body["audio"]))) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def phase_streaming(cfg, card: str):
+    """Text in, streamed PCM out, at v1's full width: the Mandarin/English
+    frontend (vendored tables, a random bert-base-chinese-wide
+    FrontendModel behind FrontendScorer on the card) in front of one seeded
+    synthesizer shared by an f32, a `half` and a `quantize` engine at
+    scales (0, s, 0), where s gives a clause STREAM_CLAUSE_S seconds on
+    average. Per precision, STREAM_RUNS seeded texts of
+    STREAM_CLAUSES clauses through `stream_synthesize` on both paths, with
+    every kernel's count zeroed just before and read just after. Checks:
+    each clause's chunks sum to y_len * hop, and no clause reaches its text
+    bucket's max_frames clip; the batched-tail stream equals
+    the per-chunk one chunk by chunk (2e-4 in f32, TF32 off; 3e-2 in bf16
+    and int8, the reduced decoders' bound); K1 carries every chunk in f32
+    and bf16, Q0-Q2 every chunk in int8, and the other family none. Then 3
+    `/stream` requests (2 bytes a streamed sample) and a burst of 8
+    concurrent `/` requests through TtsServer(batching=True) at scales
+    (0, 1, 0), each the unbatched engine's audio within 2e-4, with at least
+    one batch of two or more. The English word's ARPAbet ids are checked to
+    reach the synthesizer."""
+    from wetts_tpu_torch.frontend.scorer import FrontendScorer
+    from wetts_tpu_torch.models.bert_frontend import BertConfig, FrontendModel
+    from wetts_tpu_torch.models.mrf import mrf_stage
+    from wetts_tpu_torch.models.quant import (
+        int8_conv1d,
+        int8_conv_transpose1d,
+        row_scale,
+    )
+    from wetts_tpu_torch.models.synthesizer import Synthesizer
+    from wetts_tpu_torch.serving.engine import (
+        MAX_CLAUSE_LEN,
+        STREAM_TAIL_MAX,
+        SynthesisEngine,
+    )
+    from wetts_tpu_torch.serving.server import TtsServer
+    from wetts_tpu_torch.serving.streaming import DEFAULT_BLOCK, DEFAULT_PAD
+    from wetts_tpu_torch.text.frontend import G2pProsody
+    from wetts_tpu_torch.text.segmenter import sentence_segment
+
+    vocab, lexicon, pinyin2id, pinyin2phones, g2p_en, phone2id = \
+        frontend_tables()
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        bert = FrontendModel(len(pinyin2id), 5, BertConfig())
+    scorer = TimedScorer(FrontendScorer(bert))
+    frontend = G2pProsody(scorer, vocab, lexicon, pinyin2id, pinyin2phones,
+                          g2p_en)
+    cfg = copy.deepcopy(cfg)
+    cfg.num_phones = len(phone2id)
+    model = random_init_(Synthesizer(cfg), SEED)
+    speakers = {f"spk{i}": i for i in range(N_SPEAKERS)}
+    engines = {name: SynthesisEngine(
+        cfg, model, phone2id, speakers, frontend=frontend, seed=SEED,
+        noise_scale=0.0, noise_scale_w=0.0, **options)
+        for name, options in (("f32", {}), ("bf16", {"half": True}),
+                              ("int8", {"quantize": True}))}
+    hanzi = [w for w in lexicon.words() if len(w) == 1]
+    rng = np.random.default_rng(SEED)
+    counters = {"mrf_stage": mrf_stage, "int8_conv": int8_conv1d,
+                "int8_conv_transpose": int8_conv_transpose1d,
+                "int8_row_scale": row_scale}
+    m = cfg.model
+    mrf_convs = sum(len(conv_dilations(m.resblock, d))
+                    for d in m.resblock_dilation_sizes
+                    ) * len(m.upsample_rates)
+    ups = len(m.upsample_rates)
+    hop = model.hop
+    probe = engines["f32"]
+
+    def y_lens(clauses, length_scale):
+        """Each clause's frames (the duration path is f32 in every engine,
+        so the three engines give the same) and its bucket's clip."""
+        probe.scales = (0.0, length_scale, 0.0)
+        got = []
+        for c in clauses:
+            ids = probe.text_to_phone_ids(c)
+            got.append((int(probe._encode_flow([ids], [1])[1][0]),
+                        probe._bucket(len(ids))[1]))
+        return got
+
+    # length_scale such that a clause averages STREAM_CLAUSE_S: durations
+    # are ceil(w * length_scale), about a * length_scale + b frames a
+    # clause, so rescaling by target / frames converges in a few steps
+    calibration = sentence_segment(stream_text(rng, hanzi, 4), MAX_CLAUSE_LEN)
+    target = STREAM_CLAUSE_S * probe.sample_rate / hop
+    length_scale = 0.5
+    for _ in range(8):
+        frames = float(np.mean([f for f, _ in y_lens(calibration,
+                                                     length_scale)]))
+        if abs(frames / target - 1) < 0.05:
+            break
+        length_scale *= target / frames
+    check(abs(frames / target - 1) < 0.1,
+          f"clauses of {frames} frames at length_scale {length_scale}, not "
+          f"{target}")
+    for engine in engines.values():
+        engine.scales = (0.0, length_scale, 0.0)
+    out, texts = {}, [stream_text(rng, hanzi, STREAM_CLAUSES)
+                      for _ in range(STREAM_RUNS)]
+    frames = {text: y_lens(sentence_segment(text, MAX_CLAUSE_LEN),
+                           length_scale) for text in texts}
+    check(all(f < clip for v in frames.values() for f, clip in v),
+          "a streamed clause reaches its bucket's max_frames clip")
+    # the English word's phones reach the synthesizer as ids, in order
+    english = [phone2id[p] for p in g2p_en.convert(STREAM_ENGLISH)]
+    ids = [probe.text_to_phone_ids(c) for c in sentence_segment(
+        texts[0], MAX_CLAUSE_LEN) if STREAM_ENGLISH in c]
+    check(len(ids) == 1 and any(
+        ids[0][k: k + len(english)] == english for k in range(len(ids[0]))),
+        f"the ids of {STREAM_ENGLISH!r} ({english}) are not in its clause's")
+    for name, engine in engines.items():
+        warm = stream_text(rng, hanzi, 2)
+        for tail in (True, False):
+            engine.stream_batch_tail = tail
+            list(engine.stream_synthesize(warm, "spk1"))
+        for fn in counters.values():
+            fn.launches = 0
+        engine.stage_times.reset()
+        scorer.ms.clear()
+        runs = {True: [], False: []}
+        for text in texts:
+            for tail in (True, False):
+                engine.stream_batch_tail = tail
+                chunks, first = [], None
+                t0 = time.perf_counter()
+                for chunk in engine.stream_synthesize(text, "spk1"):
+                    if first is None:
+                        first = 1e3 * (time.perf_counter() - t0)
+                    chunks.append(chunk)
+                runs[tail].append((chunks, first,
+                                   time.perf_counter() - t0))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stages = engine.stage_times.report()
+        decodes = stages["decode_chunk"]["n"]
+        scorer_ms = list(scorer.ms)
+        want = {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
+                "int8": (0, mrf_convs, ups, 1)}[name]
+        for (key, got), per_decode in zip(launches.items(), want):
+            check(got == per_decode * decodes,
+                  f"stream {name}: {key} launched {got} times, not "
+                  f"{per_decode} x {decodes} chunk decodes")
+        tol = 2e-4 if name == "f32" else 3e-2
+        worst, chunk_counts, stacks, clause_s = 0.0, [], [], []
+        for text, (batched, _, _), (per_chunk, _, _) in zip(
+                texts, runs[True], runs[False]):
+            check(len(batched) == len(per_chunk) and all(
+                a.shape == b.shape for a, b in zip(batched, per_chunk)),
+                f"stream {name}: the two paths cut different chunks")
+            worst = max(worst, max(float(np.abs(a - b).max())
+                                   for a, b in zip(batched, per_chunk)))
+            # each clause's chunks sum to its y_len * hop
+            lo = 0
+            for y_len, _ in frames[text]:
+                clause_s.append(y_len * hop / engine.sample_rate)
+                n = math.ceil(y_len / DEFAULT_BLOCK)
+                got = sum(c.size for c in batched[lo: lo + n])
+                check(got == y_len * hop, f"stream {name}: a clause of "
+                      f"{y_len} frames streamed {got} samples")
+                lo += n
+            check(lo == len(batched), f"stream {name}: {len(batched)} "
+                  f"chunks, {lo} from the clauses' lengths")
+            chunk_counts.append(len(batched))
+            stacks.append([1] + [min(STREAM_TAIL_MAX, len(batched) - k)
+                                 for k in range(1, len(batched),
+                                                STREAM_TAIL_MAX)])
+        check(worst <= tol, f"stream {name}: batched tail vs per chunk "
+                            f"{worst} > {tol}")
+        check(any(STREAM_TAIL_MAX in st for st in stacks),
+              f"stream {name}: no tail stack of {STREAM_TAIL_MAX} rows "
+              f"({stacks})")
+        row = {"precision": name, "card": card, "streams": len(texts),
+               "length_scale": length_scale,
+               "clauses_per_stream": STREAM_CLAUSES,
+               "chunks_per_stream": chunk_counts, "tail_stacks": stacks,
+               "clause_s_min": min(clause_s), "clause_s_max": max(clause_s),
+               "clause_s_mean": float(np.mean(clause_s)),
+               "batched_vs_per_chunk_max_abs": worst, "tolerance": tol,
+               "chunk_decodes": decodes, "launches": launches,
+               "scorer_ms_per_clause_p50": float(np.median(scorer_ms)),
+               "scorer_calls": len(scorer_ms),
+               "stage_ms_p50": {k: v["p50_ms"] for k, v in stages.items()},
+               "stage_n": {k: v["n"] for k, v in stages.items()}}
+        rtf, firsts = {}, {}
+        for tail, key in ((True, "batched_tail"), (False, "per_chunk")):
+            firsts[tail] = [r[1] for r in runs[tail]]
+            audio_s = [sum(c.size for c in r[0]) / engine.sample_rate
+                       for r in runs[tail]]
+            rtf[tail] = [r[2] / a for r, a in zip(runs[tail], audio_s)]
+            row[key] = {"first_chunk_ms": spread(firsts[tail]),
+                        "rtf": spread(rtf[tail]),
+                        "audio_s": spread(audio_s)}
+        # per text: how much the stacked tail cuts RTF, and how much longer
+        # it makes the listener wait for the first chunk
+        row["rtf_per_chunk_over_batched"] = spread(
+            [b / a for a, b in zip(rtf[True], rtf[False])])
+        row["first_chunk_batched_over_per_chunk"] = spread(
+            [a / b for a, b in zip(firsts[True], firsts[False])])
+        # the decode of one chunk and of a full tail stack, on the device
+        # (one call behind each sleep: a B = 1 int8 decode takes the host
+        # some 5 ms to queue, too long for several behind one sleep)
+        z = torch.randn(CHUNK_BATCHES[-1], DEFAULT_BLOCK + 2 * DEFAULT_PAD,
+                        m.inter_channels, device="cuda")
+        g = model._speaker(torch.ones(CHUNK_BATCHES[-1], dtype=torch.long,
+                                      device="cuda"))
+        with torch.inference_mode():
+            for b in CHUNK_BATCHES:
+                row[f"decode_B{b}_device_ms"] = min(device_ms(
+                    lambda: model.decode(z[:b], g[:b], precision=name), 1)
+                    for _ in range(3))
+                row[f"decode_B{b}_ms"] = cuda_ms(
+                    lambda: model.decode(z[:b], g[:b], precision=name), 5)
+        print("streaming " + json.dumps(row))
+        out[name] = row
+        if name == "f32":
+            streamed = [sum(c.size for c in r[0]) for r in runs[True]]
+    engine = engines["f32"]
+    engine.stream_batch_tail = True
+    # /stream: 3 requests of the texts streamed above
+    server = TtsServer(engine, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        firsts = []
+        for k in range(3):
+            pcm, first = read_stream(server.port, texts[k % len(texts)])
+            want = streamed[k % len(texts)]
+            check(pcm.size == want, f"/stream sent {2 * pcm.size} bytes for "
+                                    f"{want} samples")
+            firsts.append(first)
+    finally:
+        server.shutdown()
+    # a burst on `/` through the batcher, at scales (0, 1, 0)
+    engine.scales = (0.0, 1.0, 0.0)
+    server = TtsServer(engine, host="127.0.0.1", port=0, batching=True,
+                       max_delay_s=0.05)
+    server.start_background()
+    burst = [stream_text(rng, hanzi, 1) for _ in range(8)]
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(burst)) as pool:
+            t0 = time.perf_counter()
+            answers = list(pool.map(lambda t: http_wav(server.port, t),
+                                    burst))
+            burst_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    worst = 0
+    for text, pcm in zip(burst, answers):
+        want = (np.clip(engine.synthesize(text, "spk1"), -1, 1)
+                * 32767.0).astype(np.int16)
+        check(pcm.shape == want.shape, f"burst: {pcm.shape} vs {want.shape}")
+        worst = max(worst, int(np.abs(pcm.astype(np.int32) - want).max()))
+    # 2e-4 of full scale, plus the rounding to int16
+    check(worst <= 8, f"burst: batched audio differs from the unbatched "
+                      f"engine's by {worst} / 32767")
+    # the requests shared engine calls: the comparison above is the batched
+    # path against the unbatched one, not the unbatched one against itself
+    sizes = server.batcher.batch_sizes
+    check(max(sizes) >= 2, f"burst: no batch held two requests: {sizes}")
+    out["http"] = {"card": card, "stream_requests": len(firsts),
+                   "stream_first_chunk_ms": firsts,
+                   "burst_requests": len(burst), "burst_s": burst_s,
+                   "burst_batch_sizes": sizes,
+                   "burst_max_abs_int16": worst}
+    print("streaming_http " + json.dumps(out["http"]))
+    return out
+
+
 def compare_with_f32(name: str, audios, exact, corr_floor: float) -> dict:
     """A reduced engine's requests against the f32 engine's on the same
     seed: equal lengths (the duration path stays f32), and audio within the
@@ -1200,6 +1693,7 @@ def main() -> int:
     rows = phase_kernels(engine.model, cfg.model)
     rows_bf16 = phase_kernels(engine.model, cfg.model, torch.bfloat16)
     q = phase_int8_kernels(engine.model, cfg.model, rows_bf16)
+    phase_chunk_kernels(engine.model, cfg.model)
     print("model_stages " + json.dumps(phase_model_stages(engine.model, {
         "f32": sum(r["ms"] for r in rows),
         "bf16": sum(r["ms"] for r in rows_bf16),
@@ -1220,6 +1714,8 @@ def main() -> int:
         s["precision"]: {"audio_s_per_s": s["audio_s_per_s"],
                          "batch_ms_p50": s["batch_ms_p50"]}
         for s in (synth, synth_bf16, synth_int8)}))
+    torch.cuda.empty_cache()
+    phase_streaming(cfg, card)
     torch.cuda.empty_cache()
 
     mas_rows = phase_mas_kernel()

@@ -2,8 +2,10 @@
 its plain PyTorch version at VITS-base stage shapes; K2, the CUDA monotonic
 alignment search, exactly equal to its plain version; the int8 convolutions
 and the int8 MRF stage against their plain versions; K3, the int8 and bf16
-matrix chains; and the port's synthesis (f32, bf16, int8) and training step
-on the GPU against the CPU.
+matrix chains; the port's synthesis (f32, bf16, int8) and training step
+on the GPU against the CPU; and K1 and the int8 stage at the streamed
+decoder's chunk shapes, and a streamed synthesis whose batched tail equals
+its per-chunk decode on the card at each precision.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -14,6 +16,7 @@ f32 on both sides with TF32 off (cuDNN would otherwise run the plain
 version's convolutions in TF32).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -765,3 +768,83 @@ def test_reduced_infer_on_gpu_matches_cpu(cuda, precision, atol):
     assert (got - want).abs().max().item() <= atol
     assert torch.corrcoef(torch.stack([got.flatten(),
                                        want.flatten()]))[0, 1] > 0.99
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("c,t", [(256, 480), (128, 3840)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+def test_kernels_at_chunk_shapes(cuda, b, c, t, dtype):
+    """K1 (f32, bf16) and the int8 stage at the shapes the streamed decoder
+    gives them: 60-frame chunks, decoded alone (B = 1) or 64 to a stack, at
+    v1's first two stages (T = 480 and 3840 samples, no multiple of a
+    128-row tile). Bounds as above: 1e-4 of max |plain| in f32, 8 bf16 ulps,
+    1 / 127 of max |plain| for the int8 stage."""
+    gen = torch.Generator().manual_seed(b + c)
+    stage = [[(w.to(cuda), bias.to(cuda)) for w, bias in br]
+             for br in _stage(c, "1", gen)]
+    h = torch.randn(b, t, c, generator=gen).to(cuda)
+    if dtype == "int8":
+        q = quantize_stage(stage, torch.bfloat16)
+        h = h.to(torch.bfloat16)
+        before = int8_conv1d.launches
+        got = mrf_stage_int8(h, q, "1", DILATIONS)
+        torch.cuda.synchronize()
+        assert int8_conv1d.launches - before == 18
+        want = mrf_stage_int8_reference(h, q, "1", DILATIONS)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= want.float().abs().max().item() / 127.0
+        return
+    stage = [[(w.to(dtype), bias.to(dtype)) for w, bias in br]
+             for br in stage]
+    h = h.to(dtype)
+    before = mrf_stage.launches
+    got = mrf_stage(h, stage, "1", KERNEL_SIZES, DILATIONS)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and mrf_stage.launches - before == 18
+    want = mrf_stage_reference(h, stage, "1", KERNEL_SIZES, DILATIONS)
+    if dtype == torch.bfloat16:
+        _close(got, want, 8)
+    else:
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("precision,atol", [("f32", 2e-4), ("bf16", 3e-2),
+                                            ("int8", 3e-2)])
+def test_stream_batched_tail_equals_per_chunk_on_gpu(cuda, precision, atol):
+    """stream_synthesize on the card at scales (0, 5, 0): the batched tail
+    (one encode, the first chunk alone, the rest stacked) against one decode
+    per chunk, chunk by chunk, at the decoder's precision; every chunk
+    decode goes through K1 (f32, bf16) or the int8 kernels."""
+    from wetts_tpu_torch.serving.engine import SynthesisEngine
+
+    cfg = Config.from_dict({
+        "train": {"segment_size": 256},
+        "data": {"filter_length": 64, "hop_length": 16, "win_length": 64},
+        "model": {"inter_channels": 32, "hidden_channels": 32,
+                  "filter_channels": 64, "n_layers": 2,
+                  "resblock_kernel_sizes": [3, 5],
+                  "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5]],
+                  "upsample_rates": [4, 4], "upsample_initial_channel": 128,
+                  "upsample_kernel_sizes": [8, 8], "gin_channels": 16},
+        "num_phones": 24, "num_speakers": 3})
+    phones = {"sil": 0, **{f"p{i}": i for i in range(1, 24)}}
+    option = {"f32": {}, "bf16": {"half": True},
+              "int8": {"quantize": True}}[precision]
+    engine = SynthesisEngine(cfg, random_init_(Synthesizer(cfg), 0), phones,
+                             {"a": 0, "b": 1, "c": 2}, noise_scale=0.0,
+                             length_scale=5.0, noise_scale_w=0.0, **option)
+    text = ". ".join(" ".join(f"p{(7 * k + j) % 23 + 1}" for j in range(30))
+                     for k in range(9)) + "."
+    counters = (mrf_stage, int8_conv1d)
+    before = [f.launches for f in counters]
+    batched = list(engine.stream_synthesize(text, "b"))
+    moved = [f.launches - n for f, n in zip(counters, before)]
+    assert (moved[0] > 0) == (precision != "int8")
+    assert (moved[1] > 0) == (precision == "int8")
+    engine.stream_batch_tail = False
+    per_chunk = list(engine.stream_synthesize(text, "b"))
+    assert len(batched) == len(per_chunk) > 9
+    for got, want in zip(batched, per_chunk):
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert np.abs(got - want).max() <= atol

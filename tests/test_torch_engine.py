@@ -113,9 +113,17 @@ def test_server_routes(engines):
             assert w.getnframes() == port.synthesize("a b c", "spk1").size
         with urllib.request.urlopen(f"{base}/demo", timeout=60) as r:
             assert r.status == 200 and b"<audio" in r.read()
-        for path, code in (("/", 400), ("/stream?text=a", 404)):
+        for path, code in (("/", 400), ("/stream", 400)):
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(base + path, timeout=60)
             assert err.value.code == code
+        # /stream: chunked int16 PCM, 2 bytes a streamed sample
+        with urllib.request.urlopen(f"{base}/stream?{query}",
+                                    timeout=60) as r:
+            assert r.status == 200
+            assert r.headers["Transfer-Encoding"] == "chunked"
+            pcm = r.read()
+        assert len(pcm) == 2 * sum(
+            c.size for c in port.stream_synthesize("a b c", "spk1"))
     finally:
         server.shutdown()

@@ -46,7 +46,11 @@ PROBE = textwrap.dedent("""
         "train.losses", "train.state", "train.step", "train.checkpoint",
         "train.trainer", "data.dataset", "data.sampler", "utils.wav",
         "bin.train_vits", "bin.infer_vits", "models.quant",
-        "ops.int8_chain", "tools.probe_int8"]
+        "ops.int8_chain", "tools.probe_int8", "serving.streaming",
+        "serving.batcher", "bin.stream_client", "assets", "text.tn",
+        "text.sandhi", "text.lexicon", "text.g2p_en", "text.pinyin",
+        "text.frontend", "cli.frontend", "models.bert_frontend",
+        "frontend.scorer"]
     missing = [m for m in expected
                if "wetts_tpu_torch." + m not in sys.modules]
     assert not missing, missing
@@ -118,4 +122,4 @@ def test_port_imports_no_jax_and_needs_a_gpu(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 41  # every module of the package was imported
+    assert n_modules >= 55  # every module of the package was imported

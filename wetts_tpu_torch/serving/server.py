@@ -4,8 +4,10 @@ wetts_tpu/serving/server.py).
 Behavioral parity target: runtime/core/http/http_server.cc:38-152 — GET with
 query params `text` and `name` (speaker) -> synthesize -> JSON response
 {"status", "message", "audio": <base64 WAV>}; thread-per-request. `/demo`
-serves a minimal browser page. The `/stream` route waits for the port of
-streaming synthesis and answers 404 until then.
+serves a minimal browser page. `/stream` serves chunked raw int16 PCM, one
+HTTP chunk per decoded audio chunk (cpu_triton_stream semantics).
+`batching=True` routes `/` through serving/batcher.py's DynamicBatcher, so
+concurrent requests share one engine call.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ DEMO_PAGE = """<!doctype html>
 textarea{width:100%;height:5em}button{margin-top:.5em;padding:.5em 2em}
 </style></head><body>
 <h2>wetts_tpu_torch &mdash; TTS demo</h2>
-<textarea id="t" placeholder="Enter phones..."></textarea><br>
+<textarea id="t" placeholder="Enter text..."></textarea><br>
 <input id="s" placeholder="speaker (optional)">
 <button onclick="go()">Synthesize</button>
 <p id="status"></p><audio id="a" controls></audio>
@@ -63,11 +65,28 @@ def wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
 
 
 class TtsServer:
-    def __init__(self, engine, host: str = "0.0.0.0", port: int = 8080):
+    def __init__(self, engine, host: str = "0.0.0.0", port: int = 8080,
+                 batching: bool = False, max_batch: int = 8,
+                 max_delay_s: float = 0.005):
         self.engine = engine
         self.host = host
         self.port = port
         self._httpd = None
+        # cross-request dynamic batching (Triton dynamic_batching analog);
+        # the engine serializes every path that reaches it (engine.lock).
+        # max_batch and max_delay_s are the JAX server's parameters: the
+        # most requests, and the longest wait, the dispatcher gathers
+        self.batcher = None
+        if batching:
+            from wetts_tpu_torch.serving.batcher import DynamicBatcher
+
+            self.batcher = DynamicBatcher(engine, max_batch=max_batch,
+                                          max_delay_s=max_delay_s)
+
+    def _synthesize(self, text: str, name):
+        if self.batcher is not None:
+            return self.batcher.synthesize(text, name)
+        return self.engine.synthesize(text, name)
 
     def make_handler(self):
         server = self
@@ -98,18 +117,15 @@ class TtsServer:
                     self.end_headers()
                     self.wfile.write(body)
                     return
-                if parsed.path == "/stream":
-                    self._send_json(404, {
-                        "status": "failed",
-                        "message": "streaming is not available yet"})
-                    return
                 if not text:
                     self._send_json(400, {"status": "failed",
                                           "message": "missing `text` param"})
                     return
+                if parsed.path == "/stream":
+                    self._stream(text, name)
+                    return
                 try:
-                    # the engine serializes concurrent calls (engine.lock)
-                    audio = server.engine.synthesize(text, name)
+                    audio = server._synthesize(text, name)
                     wav = wav_bytes(audio, server.engine.sample_rate)
                     self._send_json(200, {
                         "status": "ok",
@@ -121,6 +137,21 @@ class TtsServer:
                     logger.exception("synthesis failed")
                     self._send_json(500, {"status": "failed",
                                           "message": str(e)})
+
+            def _stream(self, text: str, name):
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                try:
+                    for piece in server.engine.stream_synthesize(text, name):
+                        pcm = (np.clip(piece, -1, 1)
+                               * 32767.0).astype(np.int16).tobytes()
+                        self.wfile.write(f"{len(pcm):x}\r\n".encode())
+                        self.wfile.write(pcm + b"\r\n")
+                    self.wfile.write(b"0\r\n\r\n")
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # the client went away mid-stream
 
         return Handler
 
@@ -145,3 +176,5 @@ class TtsServer:
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
+        if self.batcher is not None:
+            self.batcher.shutdown()

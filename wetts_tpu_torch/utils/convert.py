@@ -3,7 +3,10 @@
 `params_from_jax(tree, cfg)` is the inverse of
 `wetts_tpu.utils.convert.convert_synthesizer`, and
 `discriminator_from_jax(tree)` of `convert_discriminator` (the multi-period
-discriminator). `params_from_jax` takes a flax param tree of
+discriminator), and `frontend_params_from_jax(params, meta)` of
+`wetts_tpu.models.bert_frontend.convert_frontend_torch` (the BERT frontend:
+Dense kernels transposed into `nn.Linear` weights, LayerNorm scale/bias to
+weight/bias, embeddings as they are). `params_from_jax` takes a flax param tree of
 numpy arrays (for example from `utils/params_io.load_params_npz`) and returns
 a state_dict in the reference `SynthesizerTrn`'s names and layouts, which the
 port's modules keep. Layout rules (the inverse of convert.py's table):
@@ -91,6 +94,16 @@ class FlaxToTorch:
             self.put(_join(prefix, "weight"), path + ("kernel",), to_torch)
         if "bias" in node:
             self.put(_join(prefix, "bias"), path + ("bias",))
+
+    def dense(self, path: Path, prefix: str) -> None:
+        """Dense [I, O] -> nn.Linear weight [O, I] and bias."""
+        self.put(_join(prefix, "weight"), path + ("kernel",), lambda k: k.T)
+        self.put(_join(prefix, "bias"), path + ("bias",))
+
+    def norm(self, path: Path, prefix: str) -> None:
+        """flax LayerNorm -> nn.LayerNorm weight and bias."""
+        self.put(_join(prefix, "weight"), path + ("scale",))
+        self.put(_join(prefix, "bias"), path + ("bias",))
 
     def layer_norm(self, path: Path, prefix: str) -> None:
         self.put(_join(prefix, "gamma"), path + ("ln", "scale"))
@@ -231,5 +244,47 @@ def discriminator_from_jax(tree: Dict, periods=(2, 3, 5, 7, 11)
                    f"discriminators.{idx}.convs.{i}")
         m.conv((f"disc_p_{p}", "conv_post"),
                f"discriminators.{idx}.conv_post")
+    m.check_all_used()
+    return m.state
+
+
+def frontend_params_from_jax(params: Dict, meta: Dict
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax FrontendModel params -> the port's `FrontendModel` state_dict.
+
+    params: `{"params": {...}}` or the inner dict (`bert`, `transform`,
+    `phone_classifier`, `prosody_classifier`), leaves numpy-convertible.
+    meta: what `convert_frontend_torch` returns beside the params; only
+    `meta["bert"].num_layers` is read. A missing leaf raises KeyError, a
+    leaf left over ValueError.
+    """
+    tree = params.get("params", params)
+    m = FlaxToTorch(tree)
+    b = ("bert",)
+    for nm in ("word_embeddings", "position_embeddings",
+               "token_type_embeddings"):
+        m.put(f"bert.embeddings.{nm}.weight", b + (nm, "embedding"))
+    m.norm(b + ("embeddings_norm",), "bert.embeddings.LayerNorm")
+    for i in range(meta["bert"].num_layers):
+        src, dst = b + (f"layer_{i}",), f"bert.encoder.layer.{i}"
+        for nm in ("query", "key", "value"):
+            m.dense(src + ("attention", nm), f"{dst}.attention.self.{nm}")
+        m.dense(src + ("attention", "output"),
+                f"{dst}.attention.output.dense")
+        m.norm(src + ("attention_norm",), f"{dst}.attention.output.LayerNorm")
+        m.dense(src + ("intermediate",), f"{dst}.intermediate.dense")
+        m.dense(src + ("ffn_output",), f"{dst}.output.dense")
+        m.norm(src + ("output_norm",), f"{dst}.output.LayerNorm")
+    t = ("transform",)
+    m.put("transform.self_attn.in_proj_weight", t + ("in_proj", "kernel"),
+          lambda k: k.T)
+    m.put("transform.self_attn.in_proj_bias", t + ("in_proj", "bias"))
+    m.dense(t + ("out_proj",), "transform.self_attn.out_proj")
+    for nm in ("linear1", "linear2"):
+        m.dense(t + (nm,), f"transform.{nm}")
+    for nm in ("norm1", "norm2"):
+        m.norm(t + (nm,), f"transform.{nm}")
+    for nm in ("phone_classifier", "prosody_classifier"):
+        m.dense((nm,), nm)
     m.check_all_used()
     return m.state
