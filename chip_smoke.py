@@ -35,24 +35,36 @@ Phases, each of which must pass (any failure exits non-zero):
    audio within the JAX package's own drift bounds;
 6. check each precision's GPU audio against the plain path on the CPU on a
    small input;
-7. hold kernel K2 (`maximum_path`, monotonic alignment search) exactly equal
+7. stream text through the Mandarin/English frontend (a random
+   bert-base-wide scorer on the card) and both streaming paths at each
+   precision, then `/stream` and a burst of batched `/` requests
+   (`phase_streaming`);
+8. VITS2 (`phase_vits2`): examples/baker/configs/vits2_vocos_v1.json at
+   full width (transformer flows, the Vocos decoder with its iSTFT) against
+   the CPU engine, batches of 4 requests of about 4 s, the stages' device
+   time beside v1's, voice conversion, both streaming paths through the
+   frontend, `/stream` and `/`; then vits2_v1.json (the HiFi-GAN decoder)
+   under f32, `half` and `quantize`, held to f32 with v1's bounds;
+9. hold kernel K2 (`maximum_path`, monotonic alignment search) exactly equal
    to its plain PyTorch version at the shapes v1 training produces and at a
    wide text, check that a call is one device kernel (torch.profiler), and
    time both, K2 back to back and on the device alone, beside its bound (the
    bytes, or the chain of dependent forward steps at the card's maximum SM
    clock);
-8. train: write a seeded synthetic corpus (64 noise-like utterances of
-   3.5-11 s, 4 speakers) to a temporary directory, build `Trainer` from
-   v1.json as it stands (batch 32, segment 8192, f32) with seeded random
-   weights, take 1 warm-up and 4 timed steps, save, resume in a second
-   `Trainer` and take one more; check metrics, moved parameters and the
-   first step's alignment, and split one step's device time by phase;
-9. check one training step on the GPU against the CPU at a small size.
-Phase 5 is the serving main path, phase 8 the training main path and the
-probe of phase 4 K3's own: each kernel's launch count is zeroed just before
-its path and read just after (under `half` every MRF stage goes through
-K1's bf16 instance and no int8 kernel runs; under `quantize` it is the
-reverse; K1 must not move while training, K2 launches once per step). The
+10. train: write a seeded synthetic corpus (64 noise-like utterances of
+    3.5-11 s, 4 speakers) to a temporary directory, build `Trainer` from
+    v1.json as it stands (batch 32, segment 8192, f32) with seeded random
+    weights, take 1 warm-up and 4 timed steps, save, resume in a second
+    `Trainer` and take one more; check metrics, moved parameters and the
+    first step's alignment, and split one step's device time by phase;
+11. check one training step on the GPU against the CPU at a small size.
+Phases 5, 7 and 8 are the serving main paths, phase 10 the training main
+path and the probe of phase 4 K3's own: each kernel's launch count is zeroed
+just before its path and read just after (under `half` every MRF stage goes
+through K1's bf16 instance and no int8 kernel runs; under `quantize` it is
+the reverse; the Vocos decoder launches none; K1 must not move while
+training, K2 launches once per step); the `kernels` line sums each kernel's
+launches over the serving paths (v1's batches, vits2_v1's batch). The
 last two lines are the kernels JSON and the device JSON. Imports nothing of
 JAX; needs a CUDA device.
 """
@@ -119,6 +131,21 @@ ARPABET = [f"{v}{s}" for v in ("AA AE AH AO AW AY EH ER EY IH IY OW OY UH "
 # that its clauses of STREAM_HANZI hanzi (some 60 phones and prosody marks)
 # average this long, within 10%, on the seeded weights
 STREAM_CLAUSE_S = 4.0
+# VITS2 (phase_vits2): the published Vocos recipe at full width, and its
+# HiFi-GAN twin; batches of BATCH requests, streams of a few clauses
+VITS2_CONFIG = os.path.join(ROOT, "examples", "baker", "configs",
+                            "vits2_vocos_v1.json")
+VITS2_HIFIGAN_CONFIG = os.path.join(ROOT, "examples", "baker", "configs",
+                                    "vits2_v1.json")
+VITS2_BATCHES, VITS2_STREAMS, VITS2_STREAM_CLAUSES = 8, 4, 4
+
+
+def vits2_config(path: str, n_phones: int):
+    from wetts_tpu_torch.config import Config
+
+    cfg = Config.from_json(path)
+    cfg.num_phones, cfg.num_speakers = n_phones, N_SPEAKERS
+    return cfg
 
 
 def check(cond: bool, msg: str) -> None:
@@ -550,8 +577,9 @@ def phase_chain():
 def phase_model_stages(model, mrf_ms: dict):
     """Device time of the three synthesis stages for a batch of 4 at the
     64-phone text bucket and the 352-frame decode bucket, flow and decode
-    at each precision, and the MRF stages' share of each decode (their time
-    from the kernel phases, at the same shapes)."""
+    at each precision of `mrf_ms`, and the MRF stages' share of each decode
+    (their time from the kernel phases, at the same shapes; None for a
+    decoder without them)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randint(1, N_PHONES, (BATCH, 64), device="cuda", generator=gen)
     xl = torch.full((BATCH,), 64, device="cuda")
@@ -570,8 +598,9 @@ def phase_model_stages(model, mrf_ms: dict):
                     z_p, mask, g, precision), 3),
                 "decode_ms": cuda_ms(lambda: model.decode(
                     z, g, precision=precision), 3)}
-            out[precision]["mrf_share_of_decode"] = \
-                ms / out[precision]["decode_ms"]
+            if ms is not None:
+                out[precision]["mrf_share_of_decode"] = \
+                    ms / out[precision]["decode_ms"]
     return out
 
 
@@ -1246,12 +1275,8 @@ def phase_train_reference():
             "attn_frames": int(got_attn.sum().item())}
 
 
-def serve_precision(cfg, name: str, options: dict, rng_seed: int,
-                    with_server: bool):
-    """The serving main path at one precision: a fresh engine (the same
-    seeded weights and noise stream every time), warm-up, then the batches
-    (and the HTTP requests) with every kernel's count zeroed just before
-    and read just after."""
+def kernel_counters() -> dict:
+    """The serving path's kernel wrappers, each counting its launches."""
     from wetts_tpu_torch.models.mrf import mrf_stage
     from wetts_tpu_torch.models.quant import (
         int8_conv1d,
@@ -1259,9 +1284,39 @@ def serve_precision(cfg, name: str, options: dict, rng_seed: int,
         row_scale,
     )
 
-    counters = {"mrf_stage": mrf_stage, "int8_conv": int8_conv1d,
-                "int8_conv_transpose": int8_conv_transpose1d,
-                "int8_row_scale": row_scale}
+    return {"mrf_stage": mrf_stage, "int8_conv": int8_conv1d,
+            "int8_conv_transpose": int8_conv_transpose1d,
+            "int8_row_scale": row_scale}
+
+
+def launches_per_decode(m, precision: str) -> tuple:
+    """kernel_counters()'s launches in one HiFi-GAN decode of model config
+    `m` at `precision`: K1 carries every MRF conv in f32 and bf16, Q1 in
+    int8, beside one Q2 per upsample and one row scale (of conv_pre's
+    output; every other scale comes from an epilogue)."""
+    mrf_convs = sum(len(conv_dilations(m.resblock, d))
+                    for d in m.resblock_dilation_sizes
+                    ) * len(m.upsample_rates)
+    return {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
+            "int8": (0, mrf_convs, len(m.upsample_rates), 1)}[precision]
+
+
+def check_launches(what: str, launches: dict, m, precision: str,
+                   n_decode: int) -> None:
+    for (key, got), per_decode in zip(launches.items(),
+                                      launches_per_decode(m, precision)):
+        check(got == per_decode * n_decode,
+              f"{what}: {key} launched {got} times, not {per_decode} x "
+              f"{n_decode} decodes")
+
+
+def serve_precision(cfg, name: str, options: dict, rng_seed: int,
+                    with_server: bool):
+    """The serving main path at one precision: a fresh engine (the same
+    seeded weights and noise stream every time), warm-up, then the batches
+    (and the HTTP requests) with every kernel's count zeroed just before
+    and read just after."""
+    counters = kernel_counters()
     engine = build_engine(cfg, **options)
     check(engine.precision == name, f"engine precision {engine.precision}")
     rng = np.random.default_rng(rng_seed)
@@ -1279,19 +1334,7 @@ def serve_precision(cfg, name: str, options: dict, rng_seed: int,
     launches = {k: fn.launches for k, fn in counters.items()}
     report = engine.stage_times.report()
     n_decode = report["decode"]["n"]
-    m = cfg.model
-    mrf_convs = sum(len(conv_dilations(m.resblock, d))
-                    for d in m.resblock_dilation_sizes
-                    ) * len(m.upsample_rates)
-    ups = len(m.upsample_rates)
-    # int8: one row scale, of conv_pre's output; every other scale comes
-    # from an epilogue (the upsamples' and the convs')
-    want = {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
-            "int8": (0, mrf_convs, ups, 1)}[name]
-    for (key, got), per_decode in zip(launches.items(), want):
-        check(got == per_decode * n_decode,
-              f"{name}: {key} launched {got} times, not {per_decode} x "
-              f"{n_decode} decodes")
+    check_launches(name, launches, cfg.model, name, n_decode)
     synth.update(precision=name, decodes=n_decode, launches=launches)
     print("synthesis " + json.dumps(synth))
     print(f"stage_times {name} " + json.dumps(
@@ -1375,7 +1418,57 @@ def http_wav(port: int, text: str) -> np.ndarray:
         return np.frombuffer(w.readframes(w.getnframes()), np.int16)
 
 
-def phase_streaming(cfg, card: str):
+def build_frontend():
+    """The Mandarin/English frontend on the vendored tables, with a random
+    bert-base-chinese-wide FrontendModel behind FrontendScorer on the card:
+    (G2pProsody, its TimedScorer, the phone table, the hanzi, the English
+    G2P)."""
+    from wetts_tpu_torch.frontend.scorer import FrontendScorer
+    from wetts_tpu_torch.models.bert_frontend import BertConfig, FrontendModel
+    from wetts_tpu_torch.text.frontend import G2pProsody
+
+    vocab, lexicon, pinyin2id, pinyin2phones, g2p_en, phone2id = \
+        frontend_tables()
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        bert = FrontendModel(len(pinyin2id), 5, BertConfig())
+    scorer = TimedScorer(FrontendScorer(bert))
+    frontend = G2pProsody(scorer, vocab, lexicon, pinyin2id, pinyin2phones,
+                          g2p_en)
+    hanzi = [w for w in lexicon.words() if len(w) == 1]
+    return frontend, scorer, phone2id, hanzi, g2p_en
+
+
+def clause_frames(engine, clauses, length_scale: float) -> list:
+    """(frames, the max_frames clip of its text bucket) of each clause at
+    scales (0, length_scale, 0), speaker 1."""
+    engine.scales = (0.0, length_scale, 0.0)
+    got = []
+    for c in clauses:
+        ids = engine.text_to_phone_ids(c)
+        got.append((int(engine._encode_flow([ids], [1])[1][0]),
+                    engine._bucket(len(ids))[1]))
+    return got
+
+
+def length_scale_for(frames_at, target: float, what: str) -> float:
+    """The length_scale at which frames_at(length_scale) is `target` within
+    5% (checked within 10%): durations are ceil(w * length_scale), about
+    a * length_scale + b frames, so rescaling by target / frames converges
+    in a few steps."""
+    length_scale = 0.5
+    for _ in range(8):
+        frames = frames_at(length_scale)
+        if abs(frames / target - 1) < 0.05:
+            break
+        length_scale *= target / frames
+    check(abs(frames / target - 1) < 0.1,
+          f"{what} of {frames} frames at length_scale {length_scale}, not "
+          f"{target}")
+    return length_scale
+
+
+def phase_streaming(cfg, card: str, fe):
     """Text in, streamed PCM out, at v1's full width: the Mandarin/English
     frontend (vendored tables, a random bert-base-chinese-wide
     FrontendModel behind FrontendScorer on the card) in front of one seeded
@@ -1394,14 +1487,6 @@ def phase_streaming(cfg, card: str):
     (0, 1, 0), each the unbatched engine's audio within 2e-4, with at least
     one batch of two or more. The English word's ARPAbet ids are checked to
     reach the synthesizer."""
-    from wetts_tpu_torch.frontend.scorer import FrontendScorer
-    from wetts_tpu_torch.models.bert_frontend import BertConfig, FrontendModel
-    from wetts_tpu_torch.models.mrf import mrf_stage
-    from wetts_tpu_torch.models.quant import (
-        int8_conv1d,
-        int8_conv_transpose1d,
-        row_scale,
-    )
     from wetts_tpu_torch.models.synthesizer import Synthesizer
     from wetts_tpu_torch.serving.engine import (
         MAX_CLAUSE_LEN,
@@ -1410,17 +1495,9 @@ def phase_streaming(cfg, card: str):
     )
     from wetts_tpu_torch.serving.server import TtsServer
     from wetts_tpu_torch.serving.streaming import DEFAULT_BLOCK, DEFAULT_PAD
-    from wetts_tpu_torch.text.frontend import G2pProsody
     from wetts_tpu_torch.text.segmenter import sentence_segment
 
-    vocab, lexicon, pinyin2id, pinyin2phones, g2p_en, phone2id = \
-        frontend_tables()
-    torch.manual_seed(SEED)
-    with torch.device("cuda"):
-        bert = FrontendModel(len(pinyin2id), 5, BertConfig())
-    scorer = TimedScorer(FrontendScorer(bert))
-    frontend = G2pProsody(scorer, vocab, lexicon, pinyin2id, pinyin2phones,
-                          g2p_en)
+    frontend, scorer, phone2id, hanzi, g2p_en = fe
     cfg = copy.deepcopy(cfg)
     cfg.num_phones = len(phone2id)
     model = random_init_(Synthesizer(cfg), SEED)
@@ -1430,45 +1507,22 @@ def phase_streaming(cfg, card: str):
         noise_scale=0.0, noise_scale_w=0.0, **options)
         for name, options in (("f32", {}), ("bf16", {"half": True}),
                               ("int8", {"quantize": True}))}
-    hanzi = [w for w in lexicon.words() if len(w) == 1]
     rng = np.random.default_rng(SEED)
-    counters = {"mrf_stage": mrf_stage, "int8_conv": int8_conv1d,
-                "int8_conv_transpose": int8_conv_transpose1d,
-                "int8_row_scale": row_scale}
+    counters = kernel_counters()
     m = cfg.model
-    mrf_convs = sum(len(conv_dilations(m.resblock, d))
-                    for d in m.resblock_dilation_sizes
-                    ) * len(m.upsample_rates)
-    ups = len(m.upsample_rates)
     hop = model.hop
     probe = engines["f32"]
 
     def y_lens(clauses, length_scale):
-        """Each clause's frames (the duration path is f32 in every engine,
-        so the three engines give the same) and its bucket's clip."""
-        probe.scales = (0.0, length_scale, 0.0)
-        got = []
-        for c in clauses:
-            ids = probe.text_to_phone_ids(c)
-            got.append((int(probe._encode_flow([ids], [1])[1][0]),
-                        probe._bucket(len(ids))[1]))
-        return got
+        """Each clause's frames and its bucket's clip (the duration path is
+        f32 in every engine, so the three engines give the same)."""
+        return clause_frames(probe, clauses, length_scale)
 
-    # length_scale such that a clause averages STREAM_CLAUSE_S: durations
-    # are ceil(w * length_scale), about a * length_scale + b frames a
-    # clause, so rescaling by target / frames converges in a few steps
+    # length_scale such that a clause averages STREAM_CLAUSE_S
     calibration = sentence_segment(stream_text(rng, hanzi, 4), MAX_CLAUSE_LEN)
-    target = STREAM_CLAUSE_S * probe.sample_rate / hop
-    length_scale = 0.5
-    for _ in range(8):
-        frames = float(np.mean([f for f, _ in y_lens(calibration,
-                                                     length_scale)]))
-        if abs(frames / target - 1) < 0.05:
-            break
-        length_scale *= target / frames
-    check(abs(frames / target - 1) < 0.1,
-          f"clauses of {frames} frames at length_scale {length_scale}, not "
-          f"{target}")
+    length_scale = length_scale_for(
+        lambda ls: float(np.mean([f for f, _ in y_lens(calibration, ls)])),
+        STREAM_CLAUSE_S * probe.sample_rate / hop, "clauses")
     for engine in engines.values():
         engine.scales = (0.0, length_scale, 0.0)
     out, texts = {}, [stream_text(rng, hanzi, STREAM_CLAUSES)
@@ -1509,12 +1563,7 @@ def phase_streaming(cfg, card: str):
         stages = engine.stage_times.report()
         decodes = stages["decode_chunk"]["n"]
         scorer_ms = list(scorer.ms)
-        want = {"f32": (mrf_convs, 0, 0, 0), "bf16": (mrf_convs, 0, 0, 0),
-                "int8": (0, mrf_convs, ups, 1)}[name]
-        for (key, got), per_decode in zip(launches.items(), want):
-            check(got == per_decode * decodes,
-                  f"stream {name}: {key} launched {got} times, not "
-                  f"{per_decode} x {decodes} chunk decodes")
+        check_launches(f"stream {name}", launches, m, name, decodes)
         tol = 2e-4 if name == "f32" else 3e-2
         worst, chunk_counts, stacks, clause_s = 0.0, [], [], []
         for text, (batched, _, _), (per_chunk, _, _) in zip(
@@ -1640,6 +1689,235 @@ def phase_streaming(cfg, card: str):
     return out
 
 
+@contextlib.contextmanager
+def cpu_drawn_noise(seed: int):
+    """Every normal draw of the port made on the CPU from `seed` and moved
+    to its device, so that a GPU run and a CPU run of a path that draws
+    (the posterior sample of voice conversion) see the same noise."""
+    from wetts_tpu_torch.ops import random as port_random
+
+    real = port_random.normal
+
+    def normal(shape, device, dtype=torch.float32, generator=None):
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randn(tuple(shape), generator=gen,
+                           dtype=dtype).to(device)
+
+    port_random.normal = normal
+    try:
+        yield
+    finally:
+        port_random.normal = real
+
+
+def within(got, want, what: str) -> dict:
+    """got (GPU) against want (CPU), float arrays of equal shapes, within
+    2e-4 * max(1, max|want|): the f32 parity bound, scaled where the wave
+    is large."""
+    check(len(got) == len(want) and all(
+        np.shape(g) == np.shape(w) for g, w in zip(got, want)),
+        f"{what}: shapes differ")
+    check(all(np.isfinite(g).all() for g in got), f"{what}: not finite")
+    peak = max(float(np.abs(w).max()) for w in want)
+    err = max(float(np.abs(np.asarray(g) - w).max())
+              for g, w in zip(got, want))
+    tol = 2e-4 * max(1.0, peak)
+    check(err <= tol, f"{what}: max abs diff {err} > {tol}")
+    return {"max_abs_err": err, "max_abs_want": peak, "tolerance": tol}
+
+
+def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
+    """VITS2 serving at the full width and depth of vits2_vocos_v1.json
+    (24 kHz; `pre_conv` transformer flows; the Vocos decoder, 512 / 1536 /
+    1026 channels, 8 ConvNeXt layers, an iSTFT of n_fft 1024 / hop 256),
+    seeded random weights, the phone table of the frontend (the raw-phone
+    requests use its first 64 ids), 4 speakers:
+    - one batch of 4 requests at scales (0, 1, 0), the GPU engine against
+      the port's CPU engine within 2e-4 * max(1, max|cpu|);
+    - VITS2_BATCHES batches of 4 raw-phone requests of about 4 s (the
+      length_scale calibrated on the first batch) at the default noise
+      scales: audio-s/s, batch p50 ms, StageTimes encode / flow / decode;
+    - device ms of encode_prior, flow_reverse and decode at B = 4 and the
+      352-frame bucket, beside v1's (`phase_model_stages`);
+    - voice conversion of one of those requests from speaker 0 to speaker
+      1: ms, and the GPU against the CPU with the same noise, same bound;
+    - VITS2_STREAMS texts of VITS2_STREAM_CLAUSES clauses of about 4 s
+      through the frontend on both streaming paths at scales (0, s, 0):
+      the batched tail equal to per-chunk decode within 2e-4 * max(1,
+      max|chunk|), each clause's chunks summing to y_len * hop; first-chunk
+      ms and stream RTF;
+    - one `/stream` request and three `/` requests through TtsServer, the
+      WAVs at 24000 Hz;
+    - vits2_v1.json (the same flows, the HiFi-GAN decoder, 22.05 kHz), one
+      batch under f32, `half` and `quantize`: K1 and Q0-Q2 launched per
+      decode as on v1, the reduced audio held to f32 with v1's bounds.
+    Returns the vits2_v1 engines' kernel launches per precision."""
+    from wetts_tpu_torch.serving.engine import MAX_CLAUSE_LEN, SynthesisEngine
+    from wetts_tpu_torch.serving.server import TtsServer
+    from wetts_tpu_torch.serving.streaming import DEFAULT_BLOCK
+    from wetts_tpu_torch.text.segmenter import sentence_segment
+    from wetts_tpu_torch.train.step import compute_spec
+
+    frontend, _, phone2id, hanzi, _ = fe
+    cfg = vits2_config(VITS2_CONFIG, len(phone2id))
+    engine = build_engine(cfg)
+    model = engine.model
+    check(engine.sample_rate == 24000 and engine.hop == 256,
+          f"vits2: {engine.sample_rate} Hz, hop {engine.hop}")
+    rng = np.random.default_rng(SEED)
+    out = {"card": card, "config": os.path.basename(VITS2_CONFIG)}
+
+    # the GPU engine against the CPU engine at scales (0, 1, 0)
+    ids, sids = utterance_batches(engine, rng, 1)[0]
+    cpu_engine = SynthesisEngine(
+        cfg, copy.deepcopy(model).cpu(), engine.phone2id, engine.speaker2id,
+        device="cpu", noise_scale=0.0, noise_scale_w=0.0)
+    engine.scales = (0.0, 1.0, 0.0)
+    want = cpu_engine.synthesize_ids_batch(ids, sids)
+    out["reference"] = within(engine.synthesize_ids_batch(ids, sids), want,
+                              "vits2 GPU vs CPU engine")
+    out["reference"]["samples"] = [w.size for w in want]
+
+    # batched synthesis, requests of about 4 s
+    def frames_at(length_scale):
+        engine.scales = (0.0, length_scale, 0.0)
+        return float(engine._encode_flow(ids, sids)[1].float().mean())
+
+    length_scale = length_scale_for(
+        frames_at, 4.0 * engine.sample_rate / engine.hop, "vits2 requests")
+    engine.scales = (0.667, length_scale, 0.8)
+    for b_ids, b_sids in utterance_batches(engine, rng, 2):  # warm-up
+        engine.synthesize_ids_batch(b_ids, b_sids)
+    batches = utterance_batches(engine, rng, VITS2_BATCHES)
+    engine.stage_times.reset()
+    audios, synth = phase_synthesis(engine, batches)
+    report = engine.stage_times.report()
+    synth.update(length_scale=length_scale, stage_ms_p50={
+        k: report[k]["p50_ms"] for k in ("encode", "flow", "decode")})
+    out["synthesis"] = synth
+    out["model_stages"] = {
+        "vits2_vocos_v1": phase_model_stages(model, {"f32": None}),
+        "v1": v1_stages}
+
+    # voice conversion of one request, speaker 0 -> 1
+    wav = torch.from_numpy(audios[0])[None].cuda()
+    with torch.inference_mode():
+        spec = compute_spec(cfg, wav)
+        args = (spec, torch.tensor([spec.shape[1]], device="cuda"),
+                torch.tensor([0], device="cuda"),
+                torch.tensor([1], device="cuda"))
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        vc_ms = cuda_ms(lambda: model.voice_conversion(*args,
+                                                       generator=gen), 5)
+        with cpu_drawn_noise(SEED):
+            got = model.voice_conversion(*args)[0].cpu().numpy()
+            want = cpu_engine.model.voice_conversion(
+                *(a.cpu() for a in args))[0].numpy()
+    check(got.shape == (1, wav.shape[1], 1), f"vc shape {got.shape}")
+    out["voice_conversion"] = {"audio_s": wav.shape[1] / engine.sample_rate,
+                               "ms": vc_ms,
+                               **within([got], [want], "vits2 vc")}
+
+    # streaming through the frontend, both paths
+    s_engine = SynthesisEngine(cfg, model, phone2id, engine.speaker2id,
+                               frontend=frontend, seed=SEED,
+                               noise_scale=0.0, noise_scale_w=0.0)
+    hop = s_engine.hop
+    calibration = sentence_segment(stream_text(rng, hanzi, 4), MAX_CLAUSE_LEN)
+    stream_scale = length_scale_for(
+        lambda ls: float(np.mean([f for f, _ in clause_frames(
+            s_engine, calibration, ls)])),
+        STREAM_CLAUSE_S * s_engine.sample_rate / hop, "vits2 clauses")
+    texts = [stream_text(rng, hanzi, VITS2_STREAM_CLAUSES)
+             for _ in range(VITS2_STREAMS)]
+    frames = {t: clause_frames(s_engine, sentence_segment(t, MAX_CLAUSE_LEN),
+                               stream_scale) for t in texts}
+    check(all(f < clip for v in frames.values() for f, clip in v),
+          "vits2: a streamed clause reaches its bucket's max_frames clip")
+    runs = {True: [], False: []}
+    for tail in (True, False):  # warm-up
+        s_engine.stream_batch_tail = tail
+        list(s_engine.stream_synthesize(stream_text(rng, hanzi, 2), "spk1"))
+    for text in texts:
+        for tail in (True, False):
+            s_engine.stream_batch_tail = tail
+            chunks, first = [], None
+            t0 = time.perf_counter()
+            for chunk in s_engine.stream_synthesize(text, "spk1"):
+                if first is None:
+                    first = 1e3 * (time.perf_counter() - t0)
+                chunks.append(chunk)
+            runs[tail].append((chunks, first, time.perf_counter() - t0))
+    for text, (batched, _, _), (per_chunk, _, _) in zip(
+            texts, runs[True], runs[False]):
+        lo = 0
+        for y_len, _ in frames[text]:
+            n = math.ceil(y_len / DEFAULT_BLOCK)
+            got = sum(c.size for c in batched[lo: lo + n])
+            check(got == y_len * hop, f"vits2 stream: a clause of {y_len} "
+                                      f"frames streamed {got} samples")
+            lo += n
+        check(lo == len(batched), f"vits2 stream: {len(batched)} chunks, "
+                                  f"{lo} from the clauses' lengths")
+    stream = within([c for r in runs[True] for c in r[0]],
+                    [c for r in runs[False] for c in r[0]],
+                    "vits2 stream, batched tail vs per chunk")
+    stream.update(streams=len(texts), clauses_per_stream=VITS2_STREAM_CLAUSES,
+                  length_scale=stream_scale,
+                  chunks_per_stream=[len(r[0]) for r in runs[True]])
+    for tail, key in ((True, "batched_tail"), (False, "per_chunk")):
+        audio_s = [sum(c.size for c in r[0]) / s_engine.sample_rate
+                   for r in runs[tail]]
+        stream[key] = {
+            "first_chunk_ms": spread([r[1] for r in runs[tail]]),
+            "rtf": spread([r[2] / a for r, a in zip(runs[tail], audio_s)]),
+            "audio_s": spread(audio_s)}
+    out["streaming"] = stream
+
+    # HTTP: /stream on the frontend engine, / on the raw-phone one
+    s_engine.stream_batch_tail = True
+    server = TtsServer(s_engine, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        pcm, first = read_stream(server.port, texts[0])
+    finally:
+        server.shutdown()
+    streamed = sum(c.size for c in runs[True][0][0])
+    check(pcm.size == streamed, f"vits2 /stream sent {pcm.size} samples, "
+                                f"not {streamed}")
+    phase_serving(engine, rng)
+    out["http"] = {"stream_first_chunk_ms": first, "wav_rate": 24000}
+    del engine, cpu_engine, s_engine, model
+    torch.cuda.empty_cache()
+
+    # vits2_v1.json under each precision: one batch, launches counted
+    cfg1 = vits2_config(VITS2_HIFIGAN_CONFIG, N_PHONES)
+    counters = kernel_counters()
+    launches, results = {}, {}
+    for name, options in (("f32", {}), ("bf16", {"half": True}),
+                          ("int8", {"quantize": True})):
+        e = build_engine(cfg1, **options)
+        e.synthesize(phrase(np.random.default_rng(SEED), 10))  # warm-up
+        batch = utterance_batches(e, np.random.default_rng(SEED + 1), 1)[0]
+        for fn in counters.values():
+            fn.launches = 0
+        e.stage_times.reset()
+        results[name] = e.synthesize_ids_batch(*batch)
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        check_launches(f"vits2_v1 {name}", launches[name], cfg1.model, name,
+                       e.stage_times.report()["decode"]["n"])
+        del e
+    out["vits2_v1"] = {
+        "launches": launches,
+        "bf16": compare_with_f32("vits2_v1 bf16", results["bf16"],
+                                 results["f32"], 0.995),
+        "int8": compare_with_f32("vits2_v1 int8", results["int8"],
+                                 results["f32"], 0.99)}
+    torch.cuda.empty_cache()
+    print("vits2 " + json.dumps(out))
+    return launches
+
+
 def compare_with_f32(name: str, audios, exact, corr_floor: float) -> dict:
     """A reduced engine's requests against the f32 engine's on the same
     seed: equal lengths (the duration path stays f32), and audio within the
@@ -1694,10 +1972,11 @@ def main() -> int:
     rows_bf16 = phase_kernels(engine.model, cfg.model, torch.bfloat16)
     q = phase_int8_kernels(engine.model, cfg.model, rows_bf16)
     phase_chunk_kernels(engine.model, cfg.model)
-    print("model_stages " + json.dumps(phase_model_stages(engine.model, {
+    v1_stages = phase_model_stages(engine.model, {
         "f32": sum(r["ms"] for r in rows),
         "bf16": sum(r["ms"] for r in rows_bf16),
-        "int8": sum(r["ms"] for r in q["stage"])})))
+        "int8": sum(r["ms"] for r in q["stage"])})
+    print("model_stages " + json.dumps(v1_stages))
     del engine
     torch.cuda.empty_cache()
     chain = phase_chain()
@@ -1715,8 +1994,11 @@ def main() -> int:
                          "batch_ms_p50": s["batch_ms_p50"]}
         for s in (synth, synth_bf16, synth_int8)}))
     torch.cuda.empty_cache()
-    phase_streaming(cfg, card)
+    fe = build_frontend()
+    phase_streaming(cfg, card, fe)
     torch.cuda.empty_cache()
+    vits2 = phase_vits2(card, v1_stages, fe)
+    del fe
 
     mas_rows = phase_mas_kernel()
     training, train_launches = phase_training(cfg)
@@ -1756,23 +2038,26 @@ def main() -> int:
     # sum; the first alone by operations, the `bound_by` of each `Q2` line)
     kernels = [
         kernel("mrf_stage", "mrf_stage.cu",
-               "wetts_tpu/models/mrf_pallas.py:172", launches["mrf_stage"],
+               "wetts_tpu/models/mrf_pallas.py:172",
+               launches["mrf_stage"] + vits2["f32"]["mrf_stage"],
                rows, "operations", total(rows, "library_ms")),
         kernel("mrf_stage_bf16", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
-               launches_bf16["mrf_stage"], rows_bf16, "operations",
-               total(rows_bf16, "library_ms")),
+               launches_bf16["mrf_stage"] + vits2["bf16"]["mrf_stage"],
+               rows_bf16, "operations", total(rows_bf16, "library_ms")),
         kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
                train_launches["mas"], v1_rows, mas_bound_by),
         kernel("int8_conv", "int8_mrf_conv.cu", q8,
-               launches_int8["int8_conv"], q["stage"], "operations",
-               total(q["stage"], "library_ms")),
+               launches_int8["int8_conv"] + vits2["int8"]["int8_conv"],
+               q["stage"], "operations", total(q["stage"], "library_ms")),
         kernel("int8_conv_transpose", "int8_mrf_conv.cu", q8,
-               launches_int8["int8_conv_transpose"], q["up"], "bytes",
+               launches_int8["int8_conv_transpose"]
+               + vits2["int8"]["int8_conv_transpose"], q["up"], "bytes",
                total(q["up"], "library_ms")),
         kernel("int8_row_scale", "int8_conv.cu",
                "wetts_tpu/models/hifigan_fast.py:141",
-               launches_int8["int8_row_scale"], q["scale"], "bytes"),
+               launches_int8["int8_row_scale"]
+               + vits2["int8"]["int8_row_scale"], q["scale"], "bytes"),
     ]
     for name in ("int8", "bf16"):
         c = chain[name]

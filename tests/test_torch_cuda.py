@@ -5,7 +5,8 @@ and the int8 MRF stage against their plain versions; K3, the int8 and bf16
 matrix chains; the port's synthesis (f32, bf16, int8) and training step
 on the GPU against the CPU; and K1 and the int8 stage at the streamed
 decoder's chunk shapes, and a streamed synthesis whose batched tail equals
-its per-chunk decode on the card at each precision.
+its per-chunk decode on the card at each precision; the Vocos decoder's
+iSTFT at any batch size.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -848,3 +849,21 @@ def test_stream_batched_tail_equals_per_chunk_on_gpu(cuda, precision, atol):
     for got, want in zip(batched, per_chunk):
         assert got.shape == want.shape and got.dtype == np.float32
         assert np.abs(got - want).max() <= atol
+
+
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_istft_on_gpu_ignores_the_batch(cuda, b):
+    """The Vocos decoder's iSTFT (n_fft 1024, hop 256) on 61 frames, B rows
+    of one spectrum whose DC and Nyquist bins have an imaginary part: every
+    row equal to the CPU's within 1e-5 * max|cpu| (cuFFT's inverse changed
+    with the batch size before those parts were dropped)."""
+    from wetts_tpu_torch.ops.spectral import istft
+
+    gen = torch.Generator().manual_seed(b)
+    re, im = (torch.randn(1, 61, 513, generator=gen) * 7 for _ in range(2))
+    want = istft(re, im, 1024, 256, 1024)
+    got = istft(re.cuda().expand(b, -1, -1), im.cuda().expand(b, -1, -1),
+                1024, 256, 1024).cpu()
+    assert got.shape == (b, 60 * 256)
+    torch.testing.assert_close(got, want.expand(b, -1), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

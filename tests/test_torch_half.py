@@ -128,6 +128,46 @@ def test_reduced_engine_drift_bounded(option, monkeypatch):
             assert np.corrcoef(g, w)[0, 1] > 0.99
 
 
+VITS2_ENGINE_CFG = copy.deepcopy(ENGINE_CFG)  # vits2_v1.json's flow type
+VITS2_ENGINE_CFG["model"].update(use_transformer_flows=True,
+                                 transformer_flow_type="pre_conv")
+
+
+@pytest.mark.parametrize("option", ["half", "quantize"])
+def test_reduced_vits2_engine_drift_bounded(option, monkeypatch):
+    """test_reduced_engine_drift_bounded on `pre_conv` transformer flows
+    (vits2_v1.json's): the bf16 flow copy casts the attention and LayerNorm
+    parameters with the rest, as the JAX engine casts every float leaf.
+    The same bounds: equal lengths, max abs err < 5e-2, correlation >
+    0.99, against the port's f32 engine and the JAX engine with the same
+    option."""
+    _, params = jax_synthesizer(VITS2_ENGINE_CFG)
+    patch_shared_draws(monkeypatch)
+    jax_engine = JaxEngine(
+        JaxConfig.from_dict(copy.deepcopy(VITS2_ENGINE_CFG)),
+        jax.tree.map(jnp.asarray, params), PHONES, SPEAKERS,
+        on_device_bucketing=False, **{option: True})
+    want_jax = jax_engine.synthesize_ids_batch(BATCH, SIDS)
+
+    def port_engine(**kw):
+        return SynthesisEngine(
+            Config.from_dict(copy.deepcopy(VITS2_ENGINE_CFG)),
+            port_synthesizer(VITS2_ENGINE_CFG, params), PHONES, SPEAKERS,
+            device="cpu", **kw)
+
+    exact = port_engine().synthesize_ids_batch(BATCH, SIDS)
+    reduced = port_engine(**{option: True})
+    flow = reduced.model.flow_bf16()
+    assert {p.dtype for p in flow.parameters()} == {torch.bfloat16}
+    got = reduced.synthesize_ids_batch(BATCH, SIDS)
+    for want in (exact, want_jax):
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32 and g.shape == w.shape
+            assert g.size > 0 and np.isfinite(g).all()
+            assert np.abs(g - w).max() < 5e-2
+            assert np.corrcoef(g, w)[0, 1] > 0.99
+
+
 def test_reduced_engine_refuses_another_vocoder():
     cfg = Config.from_dict(copy.deepcopy(ENGINE_CFG))
     model = port_synthesizer(ENGINE_CFG, jax_synthesizer(ENGINE_CFG)[1])

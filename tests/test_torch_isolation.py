@@ -50,7 +50,7 @@ PROBE = textwrap.dedent("""
         "serving.batcher", "bin.stream_client", "assets", "text.tn",
         "text.sandhi", "text.lexicon", "text.g2p_en", "text.pinyin",
         "text.frontend", "cli.frontend", "models.bert_frontend",
-        "frontend.scorer"]
+        "frontend.scorer", "models.vocos", "bin.voice_convert"]
     missing = [m for m in expected
                if "wetts_tpu_torch." + m not in sys.modules]
     assert not missing, missing
@@ -87,7 +87,7 @@ PROBE = textwrap.dedent("""
                 pass
             else:
                 raise AssertionError(option + " without a GPU did not raise")
-        from wetts_tpu_torch.bin import infer_vits, train_vits
+        from wetts_tpu_torch.bin import infer_vits, train_vits, voice_convert
         from wetts_tpu_torch.tools import probe_int8
         from wetts_tpu_torch.train.trainer import Trainer
         assert probe_int8.main() == 1  # no GPU: no result
@@ -104,7 +104,13 @@ PROBE = textwrap.dedent("""
                     lambda: train_vits.main(
                         ["-c", "examples/baker/configs/v1.json", "-m",
                          sys.argv[1], "--train_data", "unused",
-                         "--phone_table", "unused"])):
+                         "--phone_table", "unused"]),
+                    lambda: voice_convert.main(
+                        ["--cfg", "examples/baker/configs/vits2_v1.json",
+                         "--model_dir", sys.argv[1], "--phone_table", phones,
+                         "--speaker_table", phones, "--wav", "unused",
+                         "--source_speaker", "a", "--target_speaker", "a",
+                         "--out", "unused"])):
             try:
                 run()
             except RuntimeError as e:

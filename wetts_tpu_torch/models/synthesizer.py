@@ -1,5 +1,5 @@
-"""VITS synthesizer (port of wetts_tpu/models/synthesizer.py; reference
-wetts/vits/model/models.py:14-377).
+"""VITS / VITS2 synthesizer (port of wetts_tpu/models/synthesizer.py;
+reference wetts/vits/model/models.py:14-377).
 
 forward (:161-226) is the training pass: text encoder -> posterior encoder
 -> flow -> monotonic alignment search (no gradient, kernel K2 on the GPU) ->
@@ -9,18 +9,27 @@ decoder, with the noise_scale / length_scale / noise_scale_w semantics, split
 at z into encode_infer and decode for streaming callers (:282-363). As in the
 JAX package, inference runs at a static `max_frames` bound with masks, the
 realized lengths are clipped to it, and callers trim to them.
+voice_conversion (:369-376): posterior encoder with the source speaker ->
+flow forward -> flow reverse with the target speaker -> decoder.
+
+The VITS2 options of the config build what the JAX package builds: the
+transformer flows (`use_transformer_flows`, `transformer_flow_type`), the
+speaker-conditioned text encoder (`use_spk_conditioned_encoder`) and the
+Vocos decoder (`vocoder_type="vocos"`). The noise-scaled MAS of VITS2
+training is not ported: `forward` raises for it.
 
 The public functions keep the JAX package's layout: phone ids [B, T_text],
 latents and masks [B, T, C], the speaker vector g [B, 1, gin], audio
 [B, T * hop, 1], spectrograms [B, T_spec, bins]. Inside, modules run on
-[B, C, T]. Every noise draw takes an explicit `torch.Generator`. Voice
-conversion and the noise-scaled MAS of VITS2 are later slices.
+[B, C, T]. Every noise draw takes an explicit `torch.Generator`.
 
 `flow_reverse` and `decode` take a `precision` ("f32", "bf16" or "int8"), as
 the JAX engine's `half` / `quantize` options do (serving/engine.py:190-237):
 under either reduced precision the flow runs in bf16, on a bf16 copy of its
-folded parameters that is made once, and the decoder in bf16 or int8;
-`encode_prior` stays f32, so the realized lengths are those of f32.
+folded parameters (every float tensor, the transformer flows' attention and
+LayerNorm ones too) that is made once, and the HiFi-GAN decoder in bf16 or
+int8 (the Vocos decoder has no reduced route); `encode_prior` stays f32, so
+the realized lengths are those of f32.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from wetts_tpu_torch.models.duration import (
 from wetts_tpu_torch.models.encoders import PosteriorEncoder, TextEncoder
 from wetts_tpu_torch.models.flows import ResidualCouplingBlock
 from wetts_tpu_torch.models.hifigan import Generator
+from wetts_tpu_torch.models.vocos import VocosGenerator
 from wetts_tpu_torch.ops import random
 from wetts_tpu_torch.ops.mas import maximum_path
 from wetts_tpu_torch.ops.masking import (
@@ -58,36 +68,41 @@ class Synthesizer(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
-        if m.vocoder_type != "hifigan" or m.use_transformer_flows \
-                or m.use_spk_conditioned_encoder:
-            raise NotImplementedError(
-                "the port runs VITS1 with the HiFi-GAN decoder so far "
-                f"(vocoder_type={m.vocoder_type!r}, "
-                f"use_transformer_flows={m.use_transformer_flows}, "
-                f"use_spk_conditioned_encoder="
-                f"{m.use_spk_conditioned_encoder})")
-        if m.use_noise_scaled_mas:
-            raise NotImplementedError(
-                "noise-scaled MAS (VITS2) is not ported yet")
+        if m.vocoder_type not in ("hifigan", "vocos"):
+            raise ValueError(f"unknown vocoder_type {m.vocoder_type!r}")
+        self.use_noise_scaled_mas = m.use_noise_scaled_mas
         self.n_speakers = cfg.num_speakers
         self.use_sdp = m.use_sdp
+        # the JAX engine's hop (serving/engine.py:124); both published VITS2
+        # configs give 256, the iSTFT hop
         self.hop = math.prod(m.upsample_rates)
         self.segment_size = cfg.train.segment_size // cfg.data.hop_length
         gin = m.gin_channels
-        self.enc_p = TextEncoder(cfg.num_phones, m.inter_channels,
-                                 m.hidden_channels, m.filter_channels,
-                                 m.n_heads, m.n_layers, m.kernel_size,
-                                 p_dropout=m.p_dropout)
-        self.dec = Generator(m.inter_channels, m.resblock,
-                             m.resblock_kernel_sizes,
-                             m.resblock_dilation_sizes, m.upsample_rates,
-                             m.upsample_initial_channel,
-                             m.upsample_kernel_sizes, gin_channels=gin)
+        self.enc_p = TextEncoder(
+            cfg.num_phones, m.inter_channels, m.hidden_channels,
+            m.filter_channels, m.n_heads, m.n_layers, m.kernel_size,
+            p_dropout=m.p_dropout,
+            gin_channels=gin if m.use_spk_conditioned_encoder else 0)
+        if m.vocoder_type == "vocos":
+            istft = m.vocos_istft_config
+            self.dec = VocosGenerator(
+                m.inter_channels, m.vocos_channels, m.vocos_h_channels,
+                m.vocos_out_channels, m.vocos_num_layers,
+                istft.get("n_fft", 1024), istft.get("hop_length", 256),
+                istft.get("win_length", 1024), gin_channels=gin)
+        else:
+            self.dec = Generator(m.inter_channels, m.resblock,
+                                 m.resblock_kernel_sizes,
+                                 m.resblock_dilation_sizes, m.upsample_rates,
+                                 m.upsample_initial_channel,
+                                 m.upsample_kernel_sizes, gin_channels=gin)
         self.enc_q = PosteriorEncoder(cfg.data.spec_channels,
                                       m.inter_channels, m.hidden_channels,
                                       5, 1, 16, gin_channels=gin)
-        self.flow = ResidualCouplingBlock(m.inter_channels, m.hidden_channels,
-                                          5, 1, 4, gin_channels=gin)
+        self.flow = ResidualCouplingBlock(
+            m.inter_channels, m.hidden_channels, 5, 1, 4, gin_channels=gin,
+            transformer_flow_type=(m.transformer_flow_type
+                                   if m.use_transformer_flows else None))
         if m.use_sdp:
             self.dp = StochasticDurationPredictor(m.hidden_channels, 3, 4,
                                                   gin_channels=gin)
@@ -137,9 +152,13 @@ class Synthesizer(nn.Module):
         decoder slice, the duration loss, the alignment, masks and flow
         statistics under the JAX package's keys and layouts.
         """
+        if self.use_noise_scaled_mas:
+            raise NotImplementedError(
+                "noise-scaled MAS (VITS2 training) is not ported yet")
         g = self._speaker(sid)
         g_in = None if g is None else _bct(g)
-        x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, generator)
+        x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, generator,
+                                              g=g_in)
         z, m_q, logs_q, y_mask = self.enc_q(_bct(y), y_lengths, g=g_in,
                                             generator=generator)
         z_p = self.flow(z, y_mask, g=g_in, generator=generator)
@@ -203,7 +222,7 @@ class Synthesizer(nn.Module):
         """
         g = self._speaker(sid)
         g_in = None if g is None else _bct(g)
-        x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
+        x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, g=g_in)
         if self.use_sdp:
             logw = self.dp(x_h, x_mask, g=g_in, noise_scale=noise_scale_w,
                            generator=generator)
@@ -268,3 +287,22 @@ class Synthesizer(nn.Module):
             x, x_lengths, sid, noise_scale, length_scale, noise_scale_w,
             max_frames, generator, precision)
         return self.decode(z, g, precision=precision), y_lengths, attn
+
+    def voice_conversion(self, y, y_lengths, sid_src, sid_tgt,
+                         generator: Optional[torch.Generator] = None):
+        """Re-speak y as another speaker (:369-376): the posterior encoder
+        and the flow forward with the source speaker's g, the flow reverse
+        and the decoder with the target's, in f32.
+
+        y: [B, T_spec, spec_channels] (the linear spectrogram, or the
+        log-mel under use_mel_posterior_encoder). Returns (audio
+        [B, T_spec * hop, 1], y_mask [B, T_spec, 1], (z, z_p, z_hat), each
+        [B, T_spec, C])."""
+        g_src, g_tgt = (None if g is None else _bct(g) for g in (
+            self._speaker(sid_src), self._speaker(sid_tgt)))
+        z, _, _, y_mask = self.enc_q(_bct(y), y_lengths, g=g_src,
+                                     generator=generator)
+        z_p = self.flow(z, y_mask, g=g_src)
+        z_hat = self.flow(z_p, y_mask, g=g_tgt, reverse=True)
+        o_hat = self.dec(z_hat * y_mask, g=g_tgt)
+        return _bct(o_hat), _bct(y_mask), (_bct(z), _bct(z_p), _bct(z_hat))

@@ -1,5 +1,6 @@
 """Sequence masks, segment slicing and the duration-to-alignment expansion
-(port of wetts_tpu/ops/masking.py; reference commons.py:41-58, 113-136)."""
+(port of wetts_tpu/ops/masking.py; reference commons.py:41-58, 93-95,
+113-136)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,11 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """[B] lengths -> [B, max_length] float mask (1.0 where t < length)."""
     pos = torch.arange(max_length, device=lengths.device)
     return (pos[None, :] < lengths[:, None]).float()
+
+
+def subsequent_mask(length: int, device=None) -> torch.Tensor:
+    """[1, 1, T, T] lower-triangular causal mask (1.0 = attend)."""
+    return torch.tril(torch.ones(length, length, device=device))[None, None]
 
 
 def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

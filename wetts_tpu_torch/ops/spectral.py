@@ -6,12 +6,16 @@ wetts/vits/utils/mel_processing.py):
 - magnitude = sqrt(re^2 + im^2 + 1e-6) (:74),
 - slaney-scale, slaney-normalized mel filterbank (:80-95; the published
   formula, librosa is not a dependency),
-- log compression log(clamp(x, min=1e-5)) (:10-12).
+- log compression log(clamp(x, min=1e-5)) (:10-12);
+- the inverse STFT of the Vocos decoder (torchaudio's InverseSpectrogram,
+  decoders.py:281-304): Hann window, overlap-add, division by the
+  squared-window envelope, n_fft / 2 trimmed at each end.
 
 The JAX package frames the signal and multiplies by a real DFT basis so the
 transform lands on the TPU's matrix unit; that is a device workaround, not
-the function. Here the transform is `torch.stft` (cuFFT on the GPU), which
-is differentiable: the mel loss backpropagates through it into the decoder.
+the function. Here the transforms are `torch.stft` and `torch.istft` (cuFFT
+on the GPU), which are differentiable: the mel loss backpropagates through
+them into the decoder.
 Waveforms are [B, T]; spectrograms are [B, frames, bins], as in the JAX
 package.
 """
@@ -82,9 +86,13 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
 
 @functools.lru_cache(maxsize=None)
 def _on_device(kind: str, args: tuple, device: torch.device) -> torch.Tensor:
-    """The window or the filterbank as a tensor on `device`, made once."""
+    """The window or the filterbank as a tensor on `device`, made once, and
+    made outside inference mode whoever asks first: an inference tensor
+    kept here would refuse every later training step that saves it for
+    backward (torch.stft does)."""
     make = hann_window if kind == "window" else mel_filterbank
-    return torch.from_numpy(make(*args)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device)
 
 
 def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
@@ -124,3 +132,32 @@ def mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int,
     """[B, T] waveform -> [B, F, n_mels] log-mel."""
     return spec_to_mel(spectrogram(y, n_fft, hop_length, win_length), n_fft,
                        n_mels, sample_rate, fmin, fmax)
+
+
+def istft(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,
+          hop_length: int, win_length: int) -> torch.Tensor:
+    """Inverse STFT, center=True: [B, F, n_bins] real and imaginary parts
+    -> waveform [B, (F - 1) * hop] (the JAX package's `istft`).
+
+    `torch.istft` raises where the squared-window envelope falls below
+    1e-11 inside the kept samples, where the JAX function floors the
+    envelope at 1e-11 instead. With hop = n_fft / 4, as in every config
+    (1024 / 256), each kept sample lies in [n_fft / 4, n_fft / 2) of some
+    frame, where the Hann window is at least 0.5: the envelope is at least
+    0.25 for any F >= 2, so neither case is reached and the two agree.
+
+    The imaginary parts of the DC and Nyquist bins are dropped, as the JAX
+    function's inverse basis drops them. A real inverse FFT leaves its
+    result undefined where they are not 0: cuFFT's changed with the batch
+    size on the H100 (3.4e-3 apart at 64 x 61 frames, against 16 x 61, for
+    spectra of magnitude 7).
+    """
+    assert n_fft % hop_length == 0, "istft requires hop | n_fft"
+    window = _on_device("window", (win_length,), spec_real.device)
+    spec_imag = spec_imag.clone()
+    spec_imag[..., 0] = 0.0  # DC
+    if n_fft % 2 == 0:
+        spec_imag[..., -1] = 0.0  # Nyquist
+    spec = torch.complex(spec_real, spec_imag).transpose(1, 2)
+    return torch.istft(spec, n_fft, hop_length=hop_length,
+                       win_length=win_length, window=window, center=True)

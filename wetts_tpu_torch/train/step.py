@@ -23,7 +23,7 @@ import torch
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.models.discriminators import MultiPeriodDiscriminator
 from wetts_tpu_torch.models.duration import ConvFlow
-from wetts_tpu_torch.models.flows import ResidualCouplingLayer
+from wetts_tpu_torch.models.flows import AffineCoupling
 from wetts_tpu_torch.models.layers import WeightNormed
 from wetts_tpu_torch.models.synthesizer import Synthesizer
 from wetts_tpu_torch.ops.masking import slice_segments
@@ -50,6 +50,9 @@ def build_models(cfg: Config) -> Tuple[Synthesizer, MultiPeriodDiscriminator]:
     if t.fp16_run or t.bf16_run:
         raise NotImplementedError("the port trains in f32 only so far "
                                   "(fp16_run / bf16_run)")
+    if m.use_noise_scaled_mas:
+        raise NotImplementedError("the port does not train with noise-scaled "
+                                  "MAS (VITS2) yet")
     for flag in ("use_mrd_disc", "use_duration_discriminator", "use_wd"):
         if getattr(m, flag):
             raise NotImplementedError(
@@ -95,8 +98,8 @@ def init_weights_(net_g: Synthesizer, net_d: MultiPeriodDiscriminator,
         if name.endswith(("emb_rel_k", "emb_rel_v")):
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=generator)
     for module in net_g.modules():
-        if isinstance(module, (ResidualCouplingLayer, ConvFlow)):
-            zeroed = (module.post if isinstance(module, ResidualCouplingLayer)
+        if isinstance(module, (AffineCoupling, ConvFlow)):
+            zeroed = (module.post if isinstance(module, AffineCoupling)
                       else module.proj)
             zeroed.weight.zero_()
             zeroed.bias.zero_()

@@ -116,16 +116,36 @@ class FlaxToTorch:
             if nm in self.node(path):
                 self.put(_join(prefix, nm), path + (nm,))
 
+    def ffn(self, path: Path, prefix: str) -> None:
+        for nm in ("conv_1", "conv_2"):
+            self.conv(path + (nm,), _join(prefix, nm))
+
     def encoder(self, path: Path, prefix: str, n_layers: int) -> None:
+        if "spk_emb_linear" in self.node(path):
+            self.dense(path + ("spk_emb_linear",),
+                       _join(prefix, "spk_emb_linear"))
         for i in range(n_layers):
             self.mha(path + (f"attn_{i}",), _join(prefix, f"attn_layers.{i}"))
             self.layer_norm(path + (f"norm1_{i}",),
                             _join(prefix, f"norm_layers_1.{i}"))
-            for nm in ("conv_1", "conv_2"):
-                self.conv(path + (f"ffn_{i}", nm),
-                          _join(prefix, f"ffn_layers.{i}.{nm}"))
+            self.ffn(path + (f"ffn_{i}",), _join(prefix, f"ffn_layers.{i}"))
             self.layer_norm(path + (f"norm2_{i}",),
                             _join(prefix, f"norm_layers_2.{i}"))
+
+    def fft(self, path: Path, prefix: str, n_layers: int) -> None:
+        """attention.FFT: the gated speaker conditioning, then per layer the
+        causal self-attention, two norms and the FFN."""
+        if "cond_layer" in self.node(path):
+            self.conv(path + ("cond_layer",), _join(prefix, "cond_layer"))
+            self.conv(path + ("cond_pre",), _join(prefix, "cond_pre"))
+        for i in range(n_layers):
+            self.mha(path + (f"self_attn_{i}",),
+                     _join(prefix, f"self_attn_layers.{i}"))
+            self.layer_norm(path + (f"norm0_{i}",),
+                            _join(prefix, f"norm_layers_0.{i}"))
+            self.ffn(path + (f"ffn_{i}",), _join(prefix, f"ffn_layers.{i}"))
+            self.layer_norm(path + (f"norm1_{i}",),
+                            _join(prefix, f"norm_layers_1.{i}"))
 
     def wn(self, path: Path, prefix: str, n_layers: int) -> None:
         if "cond_layer" in self.node(path):
@@ -154,10 +174,54 @@ class FlaxToTorch:
             self.put(_join(prefix, nm), path + (nm,),
                      lambda a: a.reshape(-1, 1))
 
-    def coupling(self, path: Path, prefix: str, n_layers: int) -> None:
+    def coupling(self, path: Path, prefix: str, n_layers: int,
+                 ftype=None) -> None:
+        """A flow coupling of transformer flow type `ftype` (None, or a
+        mono type: the VITS1 coupling). The `fft` coupling's FFT has as many
+        layers as the flow's dilation rate, 1 (the reference's argument
+        swap); `pre_conv` has a 2-layer pre_transformer, `pre_conv2` a
+        1-layer one."""
         self.conv(path + ("pre",), _join(prefix, "pre"))
-        self.wn(path + ("enc",), _join(prefix, "enc"), n_layers)
+        if ftype == "fft":
+            self.fft(path + ("enc",), _join(prefix, "enc"), 1)
+        else:
+            self.wn(path + ("enc",), _join(prefix, "enc"), n_layers)
+        if ftype in ("pre_conv", "pre_conv2"):
+            self.encoder(path + ("pre_transformer",),
+                         _join(prefix, "pre_transformer"),
+                         2 if ftype == "pre_conv" else 1)
         self.conv(path + ("post",), _join(prefix, "post"))
+
+    def flow(self, path: Path, prefix: str, ftype=None) -> None:
+        """flows.ResidualCouplingBlock of transformer flow type `ftype`
+        (None: VITS1): 4 flows, their couplings of 4 WN layers. A mono type
+        adds a third module to each period: indices 3i and 3i + 2."""
+        mono = ftype in ("mono_layer_inter_residual",
+                         "mono_layer_post_residual")
+        period = 3 if mono else 2
+        for i in range(4):
+            self.coupling(path + (f"flow_{i}",),
+                          _join(prefix, f"flows.{period * i}"), 4, ftype)
+            if mono:
+                src = path + (f"mono_{i}",)
+                dst = _join(prefix, f"flows.{period * i + 2}")
+                self.encoder(src + ("pre_transformer",),
+                             f"{dst}.pre_transformer", 2)
+                self.conv(src + ("post",), f"{dst}.post")
+
+    def vocos(self, path: Path, prefix: str, n_layers: int) -> None:
+        self.conv(path + ("in_conv",), _join(prefix, "in_conv"))
+        if "cond" in self.node(path):
+            self.conv(path + ("cond",), _join(prefix, "cond"))
+        self.layer_norm(path + ("norm_pre",), _join(prefix, "norm_pre"))
+        for i in range(n_layers):
+            src, dst = path + (f"layer_{i}",), _join(prefix, f"layers.{i}")
+            for nm in ("dw_conv", "pw_conv1", "pw_conv2"):
+                self.conv(src + (nm,), f"{dst}.{nm}")
+            self.layer_norm(src + ("norm",), f"{dst}.norm")
+            self.put(f"{dst}.scale", src + ("scale",))
+        self.layer_norm(path + ("norm_post",), _join(prefix, "norm_post"))
+        self.conv(path + ("out_conv",), _join(prefix, "out_conv"))
 
     def generator(self, path: Path, prefix: str, cfg) -> None:
         mc = cfg.model
@@ -189,7 +253,9 @@ class FlaxToTorch:
 
 
 def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
-    """Flax Synthesizer params (VITS1, HiFi-GAN) -> the port's state_dict.
+    """Flax Synthesizer params (VITS1 or VITS2: every transformer flow
+    type, the speaker-conditioned text encoder; HiFi-GAN or Vocos) -> the
+    port's state_dict.
 
     tree: `{"params": {...}}` or the inner dict, leaves numpy-convertible.
     cfg: the port's Config (layer counts and feature flags).
@@ -203,8 +269,8 @@ def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
     m.conv(("enc_q", "pre"), "enc_q.pre")
     m.wn(("enc_q", "enc"), "enc_q.enc", 16)
     m.conv(("enc_q", "proj"), "enc_q.proj")
-    for i in range(4):
-        m.coupling(("flow", f"flow_{i}"), f"flow.flows.{2 * i}", 4)
+    m.flow(("flow",), "flow",
+           mc.transformer_flow_type if mc.use_transformer_flows else None)
     if mc.use_sdp:
         for side, src in (("flows", "flow"), ("post_flows", "post_flow")):
             m.elementwise_affine(("dp", f"{src}_ea"), f"dp.{side}.0")
@@ -222,7 +288,10 @@ def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
         m.layer_norm(("dp", "norm_2"), "dp.norm_2")
     if "cond" in tree["dp"]:
         m.conv(("dp", "cond"), "dp.cond")
-    m.generator(("dec",), "dec", cfg)
+    if mc.vocoder_type == "vocos":
+        m.vocos(("dec",), "dec", mc.vocos_num_layers)
+    else:
+        m.generator(("dec",), "dec", cfg)
     if "emb_g" in tree:
         m.put("emb_g.weight", ("emb_g", "embedding"))
     m.check_all_used()
