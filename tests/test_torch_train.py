@@ -177,7 +177,8 @@ def trained():
     """(cfg, state after one step from seeded weights, metrics, the
     generator's parameters before the step)."""
     cfg = Config.from_dict(small_cfg_dict())
-    net_g, net_d = build_models(cfg)
+    net_g, net_d, net_dur_d = build_models(cfg)
+    assert net_dur_d is None
     init_weights_(net_g, net_d, torch.Generator().manual_seed(0))
     before = {k: v.clone() for k, v in net_g.named_parameters()}
     before_d = {k: v.clone() for k, v in net_d.named_parameters()}
@@ -268,9 +269,7 @@ def test_epoch_lr_and_optimizer_settings(trained):
 
 
 @pytest.mark.parametrize("section,flag", [
-    ("train", "fp16_run"), ("train", "bf16_run"), ("model", "use_mrd_disc"),
-    ("model", "use_duration_discriminator"), ("model", "use_wd"),
-    ("model", "use_noise_scaled_mas")])
+    ("train", "fp16_run"), ("train", "bf16_run"), ("model", "use_wd")])
 def test_unported_training_options_raise(section, flag):
     cfg = small_cfg_dict()
     cfg[section][flag] = True
@@ -278,11 +277,37 @@ def test_unported_training_options_raise(section, flag):
         build_models(Config.from_dict(cfg))
 
 
+@pytest.mark.parametrize("flag", ["use_mrd_disc", "use_duration_discriminator",
+                                  "use_noise_scaled_mas"])
+def test_vits2_training_options_build(flag):
+    """Each VITS2 training option alone builds its modules: the multi-period
+    multi-resolution discriminator, the duration discriminator (V1 by
+    default, V2 by `duration_discriminator_type`), or a synthesizer that
+    draws the MAS noise; the others stay as in VITS-base."""
+    from wetts_tpu_torch.models import discriminators
+
+    cfg = small_cfg_dict()
+    cfg["model"][flag] = True
+    net_g, net_d, net_dur_d = build_models(Config.from_dict(cfg))
+    assert type(net_d) is (
+        discriminators.MultiPeriodMultiResolutionDiscriminator
+        if flag == "use_mrd_disc" else discriminators.MultiPeriodDiscriminator)
+    assert net_g.use_noise_scaled_mas == (flag == "use_noise_scaled_mas")
+    if flag != "use_duration_discriminator":
+        assert net_dur_d is None
+        return
+    assert type(net_dur_d) is discriminators.DurationDiscriminatorV1
+    assert net_dur_d.conv_1.weight.shape == (32, 32, 3)  # filter = hidden
+    cfg["model"]["duration_discriminator_type"] = "dur_disc_2"
+    _, _, net_dur_d = build_models(Config.from_dict(cfg))
+    assert type(net_dur_d) is discriminators.DurationDiscriminatorV2
+
+
 def test_init_weights_follow_the_reference(trained):
     """Identity flows (zero `post` / spline `proj`), g = ||v||, nothing else
     left at zero."""
     cfg = Config.from_dict(small_cfg_dict())
-    net_g, net_d = build_models(cfg)
+    net_g, net_d, _ = build_models(cfg)
     init_weights_(net_g, net_d, torch.Generator().manual_seed(1))
     sd = net_g.state_dict()
     assert not sd["flow.flows.0.post.weight"].any()
@@ -393,7 +418,7 @@ def test_trainer_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
 def test_checkpoints_keep_the_newest(tmp_path):
     cfg = tiny_cfg()
     cfg.num_phones = 8
-    net_g, net_d = build_models(cfg)
+    net_g, net_d, _ = build_models(cfg)
     state = GANTrainState.create(cfg, net_g, net_d)
     model_dir = str(tmp_path / "exp")
     assert ckpt.latest_step(model_dir) is None

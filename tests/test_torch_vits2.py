@@ -375,13 +375,24 @@ def test_published_configs_build():
 
 
 def test_noise_scaled_mas_is_refused_in_training():
+    """Noise-scaled MAS was refused here until its port; now the training
+    forward of a model built with it gives, at scale 0, the alignment of
+    the same weights built without it, and still takes its draw from the
+    generator, as the JAX package does (tests/test_torch_vits2_train.py
+    holds it against JAX at a scale that moves the alignment)."""
     cfg = vits2_cfg(use_noise_scaled_mas=True)
     model = Synthesizer(Config.from_dict(copy.deepcopy(cfg)))
-    x = torch.ones(1, 5, dtype=torch.long)
-    y = torch.zeros(1, 12, 33)
-    with pytest.raises(NotImplementedError, match="noise-scaled MAS"):
-        model(x, torch.tensor([5]), y, torch.tensor([12]),
-              torch.tensor([0]))
+    plain = Synthesizer(Config.from_dict(vits2_cfg()))
+    plain.load_state_dict(model.state_dict())
+    x = torch.tensor([[3, 1, 4, 1, 5]])
+    y = torch.randn(1, 20, 33, generator=torch.Generator().manual_seed(0))
+    feed = (x, torch.tensor([5]), y, torch.tensor([20]), torch.tensor([0]))
+    gens = [torch.Generator().manual_seed(1) for _ in range(2)]
+    with torch.no_grad():
+        got = model(*feed, generator=gens[0], mas_noise_scale=0.0)
+        want = plain(*feed, generator=gens[1])
+    assert torch.equal(got["attn"], want["attn"])
+    assert not torch.equal(gens[0].get_state(), gens[1].get_state())
 
 
 def _vc_cfg(mel: bool):

@@ -11,16 +11,26 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from wetts_tpu.config import Config as JaxConfig
 from wetts_tpu.models.synthesizer import Synthesizer as JaxSynthesizer
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.models.synthesizer import Synthesizer
 from wetts_tpu_torch.utils.convert import params_from_jax
+
+# Under pytest-xdist, torch's intra-op pool of each worker gets its share of
+# the cores, not all of them: with every worker's pool as wide as the
+# machine, a 3-step tiny Trainer test took 120 s beside six busy processes
+# on 8 cores, and 14 s with one thread (7 s on an idle machine).
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def small_cfg_dict(**model_overrides):

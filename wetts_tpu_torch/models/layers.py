@@ -143,23 +143,32 @@ class ConvTranspose1d(WeightNormed):
                                   stride=self.stride, padding=self.padding)
 
 
-class Conv2d(WeightNormed):
-    """torch.nn.Conv2d on [B, C, H, W] with a (k, 1) kernel, stride (s, 1)
-    and padding (p, 0): the period discriminator's convolution. weight
-    [O, I, k, 1]; weight norm per out-channel (`weight_g` [O, 1, 1, 1])."""
+def _pair(v) -> tuple:
+    """An int k as (k, 1), the period discriminator's (k, 1) geometry; a
+    pair as it is."""
+    return (v, 1) if isinstance(v, int) else tuple(v)
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = True,
+
+class Conv2d(WeightNormed):
+    """torch.nn.Conv2d on [B, C, H, W]. An int kernel size k, stride s or
+    padding p means (k, 1), (s, 1), (p, 0): the period discriminator's
+    convolution; the resolution discriminator's take pairs. weight
+    [O, I, kh, kw]; weight norm per out-channel (`weight_g` [O, 1, 1, 1])."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, bias: bool = True,
                  weight_norm: bool = False):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self._init_weight((out_channels, in_channels, kernel_size, 1),
+        self.stride = _pair(stride)
+        self.padding = (padding, 0) if isinstance(padding, int) else tuple(
+            padding)
+        self._init_weight((out_channels, in_channels, *_pair(kernel_size)),
                           out_channels, weight_norm)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.kernel(), self.bias, stride=(self.stride, 1),
-                        padding=(self.padding, 0))
+        return F.conv2d(x, self.kernel(), self.bias, stride=self.stride,
+                        padding=self.padding)
 
 
 class LayerNorm(nn.Module):

@@ -2,8 +2,10 @@
 reference wetts/vits/model/models.py:14-377).
 
 forward (:161-226) is the training pass: text encoder -> posterior encoder
--> flow -> monotonic alignment search (no gradient, kernel K2 on the GPU) ->
-duration loss -> prior expansion -> random segment slice -> decoder.
+-> flow -> monotonic alignment search (no gradient, kernel K2 on the GPU;
+VITS2's noise-scaled MAS first adds std(scores) * N(0, 1) * scale to the
+scores) -> duration loss -> prior expansion -> random segment slice ->
+decoder.
 infer (:228-280): duration sampling -> generate_path -> flow reverse ->
 decoder, with the noise_scale / length_scale / noise_scale_w semantics, split
 at z into encode_infer and decode for streaming callers (:282-363). As in the
@@ -15,8 +17,8 @@ flow forward -> flow reverse with the target speaker -> decoder.
 The VITS2 options of the config build what the JAX package builds: the
 transformer flows (`use_transformer_flows`, `transformer_flow_type`), the
 speaker-conditioned text encoder (`use_spk_conditioned_encoder`) and the
-Vocos decoder (`vocoder_type="vocos"`). The noise-scaled MAS of VITS2
-training is not ported: `forward` raises for it.
+Vocos decoder (`vocoder_type="vocos"`), and train with noise-scaled MAS
+(`use_noise_scaled_mas`).
 
 The public functions keep the JAX package's layout: phone ids [B, T_text],
 latents and masks [B, T, C], the speaker vector g [B, 1, gin], audio
@@ -144,17 +146,17 @@ class Synthesizer(nn.Module):
         return None
 
     def forward(self, x, x_lengths, y, y_lengths, sid=None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                mas_noise_scale: float = 0.0) -> Dict[str, Any]:
         """Training forward.
 
         x: [B, T_text] phone ids; y: [B, T_spec, spec_channels]. Returns the
         decoder slice, the duration loss, the alignment, masks and flow
         statistics under the JAX package's keys and layouts.
+        mas_noise_scale: the noise-scaled MAS's scale (a model built with
+        `use_noise_scaled_mas` draws the noise at any scale, 0 included,
+        as the JAX package does; another ignores it).
         """
-        if self.use_noise_scaled_mas:
-            raise NotImplementedError(
-                "noise-scaled MAS (VITS2 training) is not ported yet")
         g = self._speaker(sid)
         g_in = None if g is None else _bct(g)
         x_h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, generator,
@@ -174,6 +176,15 @@ class Synthesizer(nn.Module):
             neg_cent4 = torch.sum(-0.5 * m_p ** 2 * s_p_sq_r,
                                   dim=1)[:, None, :]
             neg_cent = neg_cent1 + neg_cent2 + neg_cent3 + neg_cent4
+            if self.use_noise_scaled_mas:
+                # the population std over every cell, padding included; the
+                # draw [B, T_text, T_spec] is channel-first, as every draw
+                # of the port
+                noise = random.normal(
+                    (neg_cent.shape[0], neg_cent.shape[2], neg_cent.shape[1]),
+                    neg_cent.device, neg_cent.dtype, generator)
+                neg_cent = neg_cent + (torch.std(neg_cent, correction=0)
+                                       * _bct(noise) * mas_noise_scale)
             attn_mask = _bct(y_mask) * x_mask  # [B, T_spec, T_text]
             attn = maximum_path(neg_cent, attn_mask)
 

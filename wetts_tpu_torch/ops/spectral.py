@@ -7,6 +7,8 @@ wetts/vits/utils/mel_processing.py):
 - slaney-scale, slaney-normalized mel filterbank (:80-95; the published
   formula, librosa is not a dependency),
 - log compression log(clamp(x, min=1e-5)) (:10-12);
+- the multi-resolution discriminator's complex spectrogram (centred,
+  reflect-padded, [B, 2, frames, bins]);
 - the inverse STFT of the Vocos decoder (torchaudio's InverseSpectrogram,
   decoders.py:281-304): Hann window, overlap-add, division by the
   squared-window envelope, n_fft / 2 trimmed at each end.
@@ -108,6 +110,21 @@ def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
     spec = torch.view_as_real(spec)
     mag = torch.sqrt(spec[..., 0] ** 2 + spec[..., 1] ** 2 + eps)
     return mag.transpose(1, 2)
+
+
+def complex_spectrogram(y: torch.Tensor, n_fft: int,
+                        hop_length: int) -> torch.Tensor:
+    """The multi-resolution discriminator's input (torchaudio
+    Spectrogram(power=None, center=True), the JAX package's
+    `discriminators._complex_spectrogram`): [B, T] -> [B, 2, frames,
+    n_bins], real and imaginary parts as channels. Reflect-padded by
+    n_fft / 2 at each end, a periodic Hann window of n_fft; T must exceed
+    n_fft / 2, as for the reference's transform."""
+    spec = torch.stft(
+        y, n_fft, hop_length=hop_length, win_length=n_fft,
+        window=_on_device("window", (n_fft,), y.device), center=True,
+        pad_mode="reflect", onesided=True, return_complex=True)
+    return torch.view_as_real(spec).permute(0, 3, 2, 1)
 
 
 def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5,

@@ -1,7 +1,8 @@
 """Checkpointing with `torch.save` (port of wetts_tpu/train/checkpoint.py).
 
 One file per saved step, `ckpt_<step>.pt` in the model directory, holding
-both networks' state_dicts, both optimiser states and the step; the same
+the networks' state_dicts (G, D, and the duration discriminator where the
+state has one), their optimiser states and the step; the same
 resume-latest semantics (numeric step discovery) as the JAX package's
 single-directory checkpoints, and the newest `max_to_keep` files are kept.
 A file is written under a temporary name and renamed, so a killed save never
@@ -48,6 +49,9 @@ def save_checkpoint(model_dir: str, state: GANTrainState, step: int,
         "opt_g": state.opt_g.state_dict(),
         "opt_d": state.opt_d.state_dict(),
     }
+    if state.net_dur_d is not None:
+        payload["net_dur_d"] = state.net_dur_d.state_dict()
+        payload["opt_dur_d"] = state.opt_dur_d.state_dict()
     tmp = _path(model_dir, step) + f".{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, _path(model_dir, step))
@@ -58,7 +62,8 @@ def save_checkpoint(model_dir: str, state: GANTrainState, step: int,
 def load_checkpoint(model_dir: str, state: GANTrainState,
                     step: Optional[int] = None) -> GANTrainState:
     """Restore `state` in place from `step` (default: the latest); without a
-    checkpoint the state is returned as it is."""
+    checkpoint the state is returned as it is. A state with a duration
+    discriminator needs a checkpoint that holds one (KeyError)."""
     if step is None:
         step = latest_step(model_dir)
     if step is None:
@@ -70,5 +75,8 @@ def load_checkpoint(model_dir: str, state: GANTrainState,
     state.net_d.load_state_dict(payload["net_d"])
     state.opt_g.load_state_dict(payload["opt_g"])
     state.opt_d.load_state_dict(payload["opt_d"])
+    if state.net_dur_d is not None:
+        state.net_dur_d.load_state_dict(payload["net_dur_d"])
+        state.opt_dur_d.load_state_dict(payload["opt_dur_d"])
     state.step = int(payload["step"])
     return state

@@ -1,5 +1,6 @@
-"""Train state: the generator, the discriminator, their optimisers and the
-step count (port of wetts_tpu/train/state.py).
+"""Train state: the generator, the discriminator, VITS2's duration
+discriminator where the config has one, their optimisers and the step count
+(port of wetts_tpu/train/state.py).
 
 The reference trains each network with its own AdamW (lr 2e-4, betas
 (0.8, 0.99), eps 1e-9, torch's default weight decay 0.01) and decays the
@@ -11,6 +12,7 @@ on the param groups at the start of each epoch.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,23 +29,30 @@ def make_optimizer(cfg: Config, module: nn.Module) -> torch.optim.AdamW:
 
 @dataclass
 class GANTrainState:
-    """G, D (each a module with its optimiser) and the number of steps
-    taken."""
+    """G, D and the duration discriminator (each a module with its
+    optimiser; the last two None without `use_duration_discriminator`) and
+    the number of steps taken."""
 
     net_g: nn.Module
     opt_g: torch.optim.Optimizer
     net_d: nn.Module
     opt_d: torch.optim.Optimizer
     step: int = 0
+    net_dur_d: Optional[nn.Module] = None
+    opt_dur_d: Optional[torch.optim.Optimizer] = None
 
     @classmethod
-    def create(cls, cfg: Config, net_g: nn.Module, net_d: nn.Module
-               ) -> "GANTrainState":
+    def create(cls, cfg: Config, net_g: nn.Module, net_d: nn.Module,
+               net_dur_d: Optional[nn.Module] = None) -> "GANTrainState":
         return cls(net_g, make_optimizer(cfg, net_g),
-                   net_d, make_optimizer(cfg, net_d))
+                   net_d, make_optimizer(cfg, net_d), net_dur_d=net_dur_d,
+                   opt_dur_d=(None if net_dur_d is None
+                              else make_optimizer(cfg, net_dur_d)))
 
     def set_learning_rate(self, lr: float) -> None:
-        for opt in (self.opt_g, self.opt_d):
+        for opt in (self.opt_g, self.opt_d, self.opt_dur_d):
+            if opt is None:
+                continue
             for group in opt.param_groups:
                 group["lr"] = lr
 

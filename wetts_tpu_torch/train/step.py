@@ -1,17 +1,25 @@
 """The GAN training step (port of wetts_tpu/train/step.py).
 
 Reproduces the reference's per-batch update (wetts/vits/train.py:366-507):
-1. one generator forward with gradients; its detached audio feeds
-2. the discriminator update on (y_slice, y_hat.detach()); then
-3. the generator update, whose adversarial terms see the *updated*
-   discriminator (the reference steps optim_d before the G pass), with
-   loss = gen + fm + c_mel * L1(mel) + sum(l_length) + c_kl * KL.
+1. one generator forward with gradients (under `use_noise_scaled_mas` at
+   the scale max(initial - delta * step, 0) of the step count before the
+   update, :375-380); its detached outputs feed
+2. the discriminator update on (y_slice, y_hat.detach()), then, where the
+   config has one,
+3. the duration discriminator's update on the detached (x_hidden, x_mask,
+   logw_, logw); then
+4. the generator update, whose adversarial terms see the *updated*
+   discriminators (the reference steps optim_d before the G pass), with
+   loss = gen + fm + c_mel * L1(mel) + sum(l_length) + c_kl * KL
+   (+ the duration discriminator's generator term, which reaches only the
+   stochastic duration predictor's own parameters through logw).
 
 The JAX step runs the generator forward twice with identical rngs, once
-without gradients for the D update and once under value_and_grad; one
+without gradients for the D updates and once under value_and_grad; one
 forward whose output is detached for D is the same computation. Linear and
 mel spectrograms are computed on the device inside the step, as in the JAX
-package. f32 only so far: `fp16_run` / `bf16_run` raise.
+package. f32 only so far: `fp16_run` / `bf16_run` raise, and so does the
+WavLM discriminator (`use_wd`).
 """
 
 from __future__ import annotations
@@ -19,9 +27,15 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from wetts_tpu_torch.config import Config
-from wetts_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+from wetts_tpu_torch.models.discriminators import (
+    DurationDiscriminatorV1,
+    DurationDiscriminatorV2,
+    MultiPeriodDiscriminator,
+    MultiPeriodMultiResolutionDiscriminator,
+)
 from wetts_tpu_torch.models.duration import ConvFlow
 from wetts_tpu_torch.models.flows import AffineCoupling
 from wetts_tpu_torch.models.layers import WeightNormed
@@ -43,40 +57,51 @@ from wetts_tpu_torch.train.state import GANTrainState
 Batch = Dict[str, torch.Tensor]
 
 
-def build_models(cfg: Config) -> Tuple[Synthesizer, MultiPeriodDiscriminator]:
-    """The generator and the discriminator of a config (reference
+def build_models(cfg: Config) -> Tuple[Synthesizer, nn.Module,
+                                       Optional[nn.Module]]:
+    """The generator, the discriminator (multi-period, or multi-period
+    multi-resolution under `use_mrd_disc`) and the duration discriminator
+    (None without `use_duration_discriminator`) of a config (reference
     train.py:82-211). Raises for what the port does not train yet."""
     m, t = cfg.model, cfg.train
     if t.fp16_run or t.bf16_run:
         raise NotImplementedError("the port trains in f32 only so far "
                                   "(fp16_run / bf16_run)")
-    if m.use_noise_scaled_mas:
-        raise NotImplementedError("the port does not train with noise-scaled "
-                                  "MAS (VITS2) yet")
-    for flag in ("use_mrd_disc", "use_duration_discriminator", "use_wd"):
-        if getattr(m, flag):
-            raise NotImplementedError(
-                f"the port trains with the multi-period discriminator only "
-                f"so far ({flag})")
-    return Synthesizer(cfg), MultiPeriodDiscriminator()
+    if m.use_wd:
+        raise NotImplementedError("the port does not train with the WavLM "
+                                  "discriminator yet (use_wd)")
+    net_d = (MultiPeriodMultiResolutionDiscriminator() if m.use_mrd_disc
+             else MultiPeriodDiscriminator())
+    net_dur_d = None
+    if m.use_duration_discriminator:
+        cls = (DurationDiscriminatorV1
+               if m.duration_discriminator_type == "dur_disc_1"
+               else DurationDiscriminatorV2)
+        net_dur_d = cls(m.hidden_channels, m.hidden_channels, 3, 0.1,
+                        gin_channels=m.gin_channels)
+    return Synthesizer(cfg), net_d, net_dur_d
 
 
 @torch.no_grad()
-def init_weights_(net_g: Synthesizer, net_d: MultiPeriodDiscriminator,
-                  generator: Optional[torch.Generator] = None) -> None:
+def init_weights_(net_g: Synthesizer, net_d: nn.Module,
+                  generator: Optional[torch.Generator] = None,
+                  net_dur_d: Optional[nn.Module] = None) -> None:
     """Initial weights at the reference's distributions, drawn from
-    `generator` (a CPU generator; None is torch's global one): conv and dense tensors U(-1/sqrt(fan_in), +) (torch's
-    default; xavier-uniform for the attention's q, k, v), the phone
-    embedding N(0, hidden^-0.5), the speaker embedding N(0, 1),
-    relative-position embeddings N(0, d^-0.5), weight-norm g = ||v||;
-    LayerNorm and ElementwiseAffine stay at the identity, and the flow's
-    `post` and the spline `proj` convs at zero (identity flows), as the
-    reference initialises them."""
-    for net in (net_g, net_d):
+    `generator` (a CPU generator; None is torch's global one): conv, dense
+    and linear tensors U(-1/sqrt(fan_in), +) (torch's default;
+    xavier-uniform for the attention's q, k, v), the phone embedding N(0,
+    hidden^-0.5), the speaker embedding N(0, 1), relative-position
+    embeddings N(0, d^-0.5), weight-norm g = ||v||; LayerNorm and
+    ElementwiseAffine stay at the identity, and the flow's `post` and the
+    spline `proj` convs at zero (identity flows), as the reference
+    initialises them."""
+    nets = [net for net in (net_g, net_d, net_dur_d) if net is not None]
+    for net in nets:
         for name, module in net.named_modules():
-            if not isinstance(module, WeightNormed):
+            if not isinstance(module, (WeightNormed, nn.Linear)):
                 continue
-            w = module.weight_v if module.weight_norm else module.weight
+            weight_norm = getattr(module, "weight_norm", False)
+            w = module.weight_v if weight_norm else module.weight
             fan_in = w[0].numel()  # per group; [C_in, C_out, K] transposed
             bound = fan_in ** -0.5
             if name.endswith(("conv_q", "conv_k", "conv_v")):
@@ -86,7 +111,7 @@ def init_weights_(net_g: Synthesizer, net_d: MultiPeriodDiscriminator,
                 w.uniform_(-bound, bound, generator=generator)
             if module.bias is not None:
                 module.bias.uniform_(-bound, bound, generator=generator)
-            if module.weight_norm:
+            if weight_norm:
                 module.weight_g.copy_(torch.sqrt((w * w).sum(
                     dim=tuple(range(1, w.ndim)), keepdim=True)))
                 module.fold_()
@@ -137,9 +162,34 @@ def _mel_pair(cfg: Config, spec: torch.Tensor, out: Dict
 
 
 def _forward(net_g: Synthesizer, batch: Batch, spec: torch.Tensor,
-             generator: Optional[torch.Generator]) -> Dict:
+             generator: Optional[torch.Generator],
+             mas_noise_scale: float = 0.0) -> Dict:
     return net_g(batch["phone_ids"], batch["text_lengths"], spec,
-                 batch["spec_lengths"], batch["sid"], generator=generator)
+                 batch["spec_lengths"], batch["sid"], generator=generator,
+                 mas_noise_scale=mas_noise_scale)
+
+
+def mas_noise_scale(cfg: Config, step: int) -> float:
+    """The noise-scaled MAS's scale at `step` steps taken: max(initial -
+    delta * step, 0) (reference train.py:375-380); 0 without
+    `use_noise_scaled_mas`."""
+    m = cfg.model
+    if not m.use_noise_scaled_mas:
+        return 0.0
+    return max(m.mas_noise_scale_initial - m.noise_scale_delta * step, 0.0)
+
+
+# the forward's outputs the duration discriminator takes, in its order
+DURATION_INPUTS = ("x_hidden", "x_mask", "logw_", "logw")
+
+
+def _frozen(net: nn.Module, *args):
+    """net(*args) with no gradient into the net's own parameters."""
+    net.requires_grad_(False)
+    try:
+        return net(*args)
+    finally:
+        net.requires_grad_(True)
 
 
 def _global_norm(params) -> torch.Tensor:
@@ -157,20 +207,27 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
 
     batch: phone_ids [B, T_text], text_lengths [B], wav [B, T_spec * hop],
     spec_lengths [B], sid [B], all on the models' device.
-    mark: called with "g_forward", "d_update" and "g_update" as each phase
-    has been enqueued, for a caller that times the phases.
+    mark: called with "g_forward", "d_update", "dur_d_update" (where the
+    state has a duration discriminator) and "g_update" as each phase has
+    been enqueued, for a caller that times the phases.
     """
     d, t = cfg.data, cfg.train
-    net_g, net_d = state.net_g, state.net_d
-    net_g.train()
-    net_d.train()
+    net_g, net_d, net_dur_d = state.net_g, state.net_d, state.net_dur_d
+    for net in (net_g, net_d, net_dur_d):
+        if net is not None:
+            net.train()
     mark = mark or (lambda name: None)
     wav = batch["wav"]
+    metrics = {}
+    noise_scale = mas_noise_scale(cfg, state.step)
+    if cfg.model.use_noise_scaled_mas:
+        metrics["train/mas_noise_scale"] = torch.full(
+            (), noise_scale, device=wav.device)
     with torch.no_grad():
         spec = compute_spec(cfg, wav)
 
     # ---- generator forward, once, with gradients ----
-    out = _forward(net_g, batch, spec, generator)
+    out = _forward(net_g, batch, spec, generator, noise_scale)
     y_hat = out["audio"]  # [B, segment, 1]
     y_slice = slice_segments(wav[:, :, None],
                              out["ids_slice"] * d.hop_length, t.segment_size)
@@ -185,13 +242,19 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     state.opt_d.step()
     mark("d_update")
 
-    # ---- generator update; the updated D takes no gradient here ----
+    # ---- duration discriminator update ----
+    if net_dur_d is not None:
+        probs = net_dur_d(*(out[k].detach() for k in DURATION_INPUTS))
+        loss_dur_disc, _, _ = discriminator_loss([probs[0]], [probs[1]])
+        state.opt_dur_d.zero_grad(set_to_none=True)
+        loss_dur_disc.backward()
+        state.opt_dur_d.step()
+        metrics["loss/dur_disc"] = loss_dur_disc.detach()
+        mark("dur_d_update")
+
+    # ---- generator update; the updated discriminators take no gradient ----
     y_mel, y_hat_mel = _mel_pair(cfg, spec, out)
-    net_d.requires_grad_(False)
-    try:
-        y_d_r, y_d_g, fmap_r, fmap_g = net_d(y_slice, y_hat)
-    finally:
-        net_d.requires_grad_(True)
+    y_d_r, y_d_g, fmap_r, fmap_g = _frozen(net_d, y_slice, y_hat)
     loss_dur = torch.sum(out["l_length"].float())
     loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * t.c_mel
     loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
@@ -199,6 +262,11 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     loss_fm = feature_loss(fmap_r, fmap_g)
     loss_gen, _ = generator_loss(y_d_g)
     total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
+    if net_dur_d is not None:
+        probs = _frozen(net_dur_d, *(out[k] for k in DURATION_INPUTS))
+        loss_dur_gen, _ = generator_loss([probs[1]])
+        total = total + loss_dur_gen
+        metrics["loss/dur_gen"] = loss_dur_gen.detach()
     state.opt_g.zero_grad(set_to_none=True)
     total.backward()
     grad_norm_g = _global_norm(net_g.parameters())
@@ -206,11 +274,13 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     state.step += 1
     mark("g_update")
 
-    return {"loss/gen": loss_gen.detach(), "loss/fm": loss_fm.detach(),
-            "loss/mel": loss_mel.detach(), "loss/dur": loss_dur.detach(),
-            "loss/kl": loss_kl.detach(), "loss/disc": loss_disc.detach(),
-            "loss/g_total": total.detach(), "grad_norm/g": grad_norm_g,
-            "grad_norm/d": grad_norm_d}
+    metrics.update({
+        "loss/gen": loss_gen.detach(), "loss/fm": loss_fm.detach(),
+        "loss/mel": loss_mel.detach(), "loss/dur": loss_dur.detach(),
+        "loss/kl": loss_kl.detach(), "loss/disc": loss_disc.detach(),
+        "loss/g_total": total.detach(), "grad_norm/g": grad_norm_g,
+        "grad_norm/d": grad_norm_d})
+    return metrics
 
 
 @torch.no_grad()
@@ -218,7 +288,7 @@ def eval_step(cfg: Config, net_g: Synthesizer, batch: Batch,
               generator: Optional[torch.Generator] = None
               ) -> Dict[str, torch.Tensor]:
     """Validation pass: generator losses only, no updates, the generator in
-    eval mode (reference train.py:624-693)."""
+    eval mode, MAS without noise (reference train.py:624-693)."""
     net_g.eval()
     spec = compute_spec(cfg, batch["wav"])
     out = _forward(net_g, batch, spec, generator)

@@ -4,7 +4,8 @@ wetts/vits/train.py:37-346):
 - epoch-seeded bucketed batches, per-epoch exponential LR decay,
 - resume from the latest checkpoint, epoch = step // len(loader) + 1,
 - periodic eval + checkpoint every eval_interval steps, scalar logging to
-  `train.log` and `metrics.jsonl`.
+  `train.log` and `metrics.jsonl` (under a VITS2 config also the duration
+  discriminator's losses and the MAS noise scale).
 
 One process, one device: the data-parallel mesh of the JAX trainer, its
 TensorBoard writer and its eval media are not ported yet. The trainer runs
@@ -85,11 +86,13 @@ class Trainer:
         self._val_batcher: Optional[BucketBatcher] = None
 
         # parameters and every draw of the run derive from the config's seed
-        net_g, net_d = build_models(cfg)
+        net_g, net_d, net_dur_d = build_models(cfg)
         init_weights_(net_g, net_d,
-                      torch.Generator().manual_seed(cfg.train.seed))
-        self.state = GANTrainState.create(cfg, net_g.to(self.device),
-                                          net_d.to(self.device))
+                      torch.Generator().manual_seed(cfg.train.seed),
+                      net_dur_d)
+        self.state = GANTrainState.create(
+            cfg, net_g.to(self.device), net_d.to(self.device),
+            None if net_dur_d is None else net_dur_d.to(self.device))
         ckpt.load_checkpoint(model_dir, self.state)
         self.start_step = self.state.step
         # draws continue from a stream of their own after a resume

@@ -1,9 +1,12 @@
 """The weight bridge: flax param trees -> the port's state_dicts.
 
 `params_from_jax(tree, cfg)` is the inverse of
-`wetts_tpu.utils.convert.convert_synthesizer`, and
-`discriminator_from_jax(tree)` of `convert_discriminator` (the multi-period
-discriminator), and `frontend_params_from_jax(params, meta)` of
+`wetts_tpu.utils.convert.convert_synthesizer`,
+`discriminator_from_jax(tree, use_mrd)` of `convert_discriminator` (the
+multi-period discriminator, or with `use_mrd` the multi-period
+multi-resolution one), `duration_discriminator_from_jax(tree, dtype)` of
+`convert_duration_discriminator`, and `frontend_params_from_jax(params,
+meta)` of
 `wetts_tpu.models.bert_frontend.convert_frontend_torch` (the BERT frontend:
 Dense kernels transposed into `nn.Linear` weights, LayerNorm scale/bias to
 weight/bias, embeddings as they are). `params_from_jax` takes a flax param tree of
@@ -33,6 +36,8 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+from wetts_tpu_torch.models.discriminators import DiscriminatorR
 
 Path = Tuple[str, ...]
 
@@ -298,21 +303,60 @@ def params_from_jax(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
     return m.state
 
 
-def discriminator_from_jax(tree: Dict, periods=(2, 3, 5, 7, 11)
+def discriminator_from_jax(tree: Dict, use_mrd: bool = False,
+                           periods=(2, 3, 5, 7, 11),
+                           fft_sizes=(2048, 1024, 512)
                            ) -> Dict[str, torch.Tensor]:
     """Flax MultiPeriodDiscriminator params -> the port's state_dict
-    (`discriminators.0` the scale discriminator, then one per period)."""
+    (`discriminators.0` the scale discriminator, then one per period); with
+    `use_mrd`, MultiPeriodMultiResolutionDiscriminator params (one
+    resolution discriminator per FFT size, then one per period)."""
     tree = tree.get("params", tree)
     m = FlaxToTorch(tree)
-    for i in range(6):
-        m.conv(("disc_s", f"conv_{i}"), f"discriminators.0.convs.{i}")
-    m.conv(("disc_s", "conv_post"), "discriminators.0.conv_post")
-    for idx, p in enumerate(periods, start=1):
+    if use_mrd:
+        for idx, w in enumerate(fft_sizes):
+            base = f"discriminators.{idx}"
+            for b in range(len(DiscriminatorR.BANDS)):
+                for j in range(len(DiscriminatorR.CONVS)):
+                    m.conv((f"disc_r_{w}", f"band{b}_conv{j}"),
+                           f"{base}.band_convs.{b}.{j}")
+            m.conv((f"disc_r_{w}", "conv_post"), f"{base}.conv_post")
+    else:
+        for i in range(6):
+            m.conv(("disc_s", f"conv_{i}"), f"discriminators.0.convs.{i}")
+        m.conv(("disc_s", "conv_post"), "discriminators.0.conv_post")
+    first = len(fft_sizes) if use_mrd else 1
+    for idx, p in enumerate(periods, start=first):
         for i in range(5):
             m.conv((f"disc_p_{p}", f"conv_{i}"),
                    f"discriminators.{idx}.convs.{i}")
         m.conv((f"disc_p_{p}", "conv_post"),
                f"discriminators.{idx}.conv_post")
+    m.check_all_used()
+    return m.state
+
+
+def duration_discriminator_from_jax(tree: Dict, dtype: str = "dur_disc_1"
+                                    ) -> Dict[str, torch.Tensor]:
+    """Flax DurationDiscriminatorV1 (`dtype` "dur_disc_1") or V2
+    ("dur_disc_2") params -> the port's state_dict. V1's `pre_out_norm_*`,
+    which its forward never uses and the JAX module does not have, come out
+    at the identity (gamma 1, beta 0)."""
+    tree = tree.get("params", tree)
+    m = FlaxToTorch(tree)
+    for name in ("conv_1", "conv_2", "dur_proj", "pre_out_conv_1",
+                 "pre_out_conv_2"):
+        m.conv((name,), name)
+    norms = ("pre_out_norm_1", "pre_out_norm_2")
+    if dtype == "dur_disc_2":
+        for name in ("norm_1", "norm_2") + norms:
+            m.layer_norm((name,), name)
+    else:
+        channels = np.shape(m.node(("pre_out_conv_1", "kernel")))[-1]
+        for name in norms:
+            m.state[f"{name}.gamma"] = torch.ones(channels)
+            m.state[f"{name}.beta"] = torch.zeros(channels)
+    m.dense(("output_layer",), "output_layer.0")
     m.check_all_used()
     return m.state
 
