@@ -33,6 +33,19 @@ Phases, each of which must pass (any failure exits non-zero):
    requests through `TtsServer` on 127.0.0.1 (on the f32 and on the int8
    engine). The reduced engines must give the f32 engine's lengths and its
    audio within the JAX package's own drift bounds;
+5b. the model bundle (`phase_bundle`): phase 5's f32 synthesizer saved as a
+   released training dir (`G_90000.pth`, a `D_90000.pth` to ignore),
+   exported by `bin/export_bundle` (a subprocess, plain and with weight
+   norm folded), given a `frontend/` (a random bert-base-wide scorer), and
+   served through `cli.model.Model` on the card at f32, bf16 and int8 (load
+   time; 256 Mandarin requests of about 4 s, one at a time, each served
+   once untimed to warm its shapes and then once timed): the f32 bundle
+   equal to the in-memory model within 1 int16 LSB, the folded one within
+   the f32 bound, bf16 and int8 within phase 5's bounds; then the `tts` CLI
+   (a subprocess on the card, TF32 off as in the script) against the f32
+   Model's first request within 1 LSB, `bin/eval_mcd`
+   (0.0 against itself; the reduced precisions' MCDs printed) and a Vocos
+   bundle at bf16 warning and serving f32;
 6. check each precision's GPU audio against the plain path on the CPU on a
    small input;
 7. stream text through the Mandarin/English frontend (a random
@@ -68,17 +81,17 @@ Phases, each of which must pass (any failure exits non-zero):
 12. check one training step on the GPU against the CPU at a small size,
     for VITS-base and for a reduced VITS2 config whose MAS noise moves the
     alignment.
-Phases 5, 7 and 8 are the serving main paths, phases 10 and 11 the
+Phases 5, 5b, 7 and 8 are the serving main paths, phases 10 and 11 the
 training main paths and the probe of phase 4 K3's own: each kernel's
 launch count is zeroed just before its path and read just after (under
 `half` every MRF stage goes through K1's bf16 instance and no int8 kernel
 runs; under `quantize` it is the reverse; the Vocos decoder launches none;
 K1 must not move while training, K2 launches once per step); the `kernels`
 line sums each kernel's launches over the serving paths (v1's batches,
-vits2_v1's batch) and gives K2 one entry per training path (v1's, and the
-VITS2 recipes' at the VITS2 step's shape). The last two lines are the
-kernels JSON and the device JSON. Imports nothing of
-JAX; needs a CUDA device.
+vits2_v1's batch, the bundle phase's requests) and gives K2 one entry per
+training path (v1's, and the VITS2 recipes' at the VITS2 step's shape).
+The last two lines are the kernels JSON and the device JSON. Imports
+nothing of JAX; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -1592,7 +1605,7 @@ def serve_precision(cfg, name: str, options: dict, rng_seed: int,
         {k: {"n": v["n"], "mean_ms": v["mean_ms"], "p50_ms": v["p50_ms"]}
          for k, v in report.items()}))
     print("reference " + json.dumps(phase_reference(engine)))
-    return audios, synth, launches
+    return audios, synth, launches, engine.model
 
 
 def spread(xs) -> dict:
@@ -2169,6 +2182,349 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
     return launches
 
 
+# the bundle phase: G_<step>.pth -> export_bundle -> Model at each precision
+# 256 requests of about 25 ms: a timed window of some 6 s a precision
+BUNDLE_STEP, BUNDLE_REQUESTS = 90000, 256
+# length_scale 5 (phase 5's) folded into the weights, since a Model serves
+# at the fixed scales (0.667, 1, 0.8): the stochastic duration predictor's
+# last affine shifted by log 5 in the log-duration domain
+BUNDLE_LOG_DURATION_SHIFT = math.log(5.0)
+
+
+def run_module(*args: str) -> str:
+    """`python -m <args>` from the checkout's root; its standard output."""
+    proc = subprocess.run(
+        [sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    check(proc.returncode == 0, f"python -m {args[0]} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def write_tables(d: str, phone2id: dict, cfg_path: str) -> None:
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "phones.txt"), "w", encoding="utf8") as f:
+        f.writelines(f"{p} {i}\n" for p, i in phone2id.items())
+    with open(os.path.join(d, "speaker.txt"), "w") as f:
+        f.writelines(f"spk{i} {i}\n" for i in range(N_SPEAKERS))
+    with open(cfg_path) as src, open(os.path.join(d, "config.json"),
+                                     "w") as dst:
+        dst.write(src.read())
+
+
+def write_frontend_bundle(d: str, vocab: dict, pinyin2id: dict) -> None:
+    """frontend/ in the JAX export's layout (config.json + params.npz), of
+    a random bert-base-chinese-wide FrontendModel (build_frontend's, on the
+    CPU) written through convert_frontend_torch and save_params_npz, with
+    the vocabulary of frontend_tables(); the lexicon tables come from the
+    vendored assets."""
+    import dataclasses
+
+    from wetts_tpu_torch.models.bert_frontend import (
+        BertConfig,
+        FrontendModel,
+        convert_frontend_torch,
+    )
+    from wetts_tpu_torch.utils.params_io import save_params_npz
+
+    torch.manual_seed(SEED)
+    bert = BertConfig()
+    fm = FrontendModel(len(pinyin2id), 5, bert)
+    params, meta = convert_frontend_torch(
+        {k: v.numpy() for k, v in fm.state_dict().items()})
+    os.makedirs(d)
+    save_params_npz(os.path.join(d, "params.npz"), params)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"bert": dataclasses.asdict(bert),
+                   "num_polyphones": len(pinyin2id), "num_prosody": 5,
+                   "transform_heads": meta["transform_heads"],
+                   "transform_ffn": meta["transform_ffn"]}, f)
+    with open(os.path.join(d, "vocab.txt"), "w", encoding="utf8") as f:
+        f.writelines(t + "\n" for t in sorted(vocab, key=vocab.get))
+
+
+class Recorder:
+    """Wraps an engine's `synthesize` and keeps each float wave it gave."""
+
+    def __init__(self, fn):
+        self.fn, self.waves = fn, []
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.waves.append(out)
+        return out
+
+
+class ShapeRecorder:
+    """Wraps an engine's `_frame_bucket` and keeps each (text bucket's
+    frame cap, decode frames) shape it chose."""
+
+    def __init__(self, fn):
+        self.fn, self.shapes = fn, []
+
+    def __call__(self, max_len, cap):
+        out = self.fn(max_len, cap)
+        self.shapes.append((cap, out))
+        return out
+
+
+def serve_bundle(bundle: str, precision: str, texts) -> dict:
+    """Model(bundle, precision) on the card: its load time; `texts` one
+    request at a time, untimed, to warm every (text bucket, decode frames)
+    shape the timed pass will meet; then `texts` again, one request at a
+    time and each timed, every kernel's count zeroed just before and read
+    just after (one decode a request). A shape of the timed pass that the
+    warm-up never met is counted, not hidden."""
+    from wetts_tpu_torch.cli.model import Model
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = Model(bundle, precision=precision)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(m.engine.precision == precision and m.engine.frontend is not None
+          and m.engine.device == torch.device("cuda"),
+          f"bundle Model {precision}: {m.engine.precision} on "
+          f"{m.engine.device}")
+    m.engine.synthesize = Recorder(m.engine.synthesize)
+    m.engine._frame_bucket = ShapeRecorder(m.engine._frame_bucket)
+
+    def run():
+        for fn in counters.values():
+            fn.launches = 0
+        m.engine.stage_times.reset()
+        audio, ms = [], []
+        t_all = time.perf_counter()
+        for text in texts:
+            t0 = time.perf_counter()
+            audio.append(m.synthesis(text, "spk1"))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return audio, ms, time.perf_counter() - t_all
+
+    warm_audio, warm_ms, _ = run()
+    warm_shapes = set(m.engine._frame_bucket.shapes)
+    m.engine._frame_bucket.shapes = []
+    audio, ms, wall = run()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_decode = m.engine.stage_times.report()["decode"]["n"]
+    check(n_decode == len(texts), f"{n_decode} decodes for {len(texts)} "
+          "one-sentence requests")
+    check_launches(f"bundle {precision}", launches, m.engine.cfg.model,
+                   precision, n_decode)
+    for text, a in zip(texts, audio):
+        check(a.dtype == np.int16 and a.size > 0 and a.size % m.engine.hop
+              == 0 and int(np.abs(a.astype(np.int32)).max()) > 1000,
+              f"bundle {precision}: int16 audio {a.dtype} {a.shape}")
+        clip = m.engine._bucket(len(m.engine.text_to_phone_ids(text)))[1]
+        check(a.size // m.engine.hop < clip, f"bundle {precision}: a "
+              f"request reaches its text bucket's {clip}-frame clip")
+    shapes = set(m.engine._frame_bucket.shapes)
+    seconds = sum(a.size for a in audio) / m.sample_rate
+    return {"model": m, "warm_audio": warm_audio, "audio": audio,
+            "waves": m.engine.synthesize.waves[len(texts):],
+            "report": {"load_s": load_s, "requests": len(texts),
+                       "mean_request_audio_s": seconds / len(texts),
+                       "request_ms": spread(ms),
+                       "audio_s_per_s": seconds / wall,
+                       "window_s": wall,
+                       "warmup_request_ms": spread(warm_ms),
+                       "shapes": len(shapes),
+                       "shapes_not_warmed": len(shapes - warm_shapes),
+                       "launches": launches}}
+
+
+def int16_max_diff(got, want) -> int:
+    check(len(got) == len(want) and all(g.shape == w.shape
+                                        for g, w in zip(got, want)),
+          "int16 audio of unequal shapes")
+    return max(int(np.abs(g.astype(np.int32) - w.astype(np.int32)).max())
+               for g, w in zip(got, want))
+
+
+def phase_bundle(cfg, model) -> dict:
+    """The model bundle on the card (phase 5b). Phase 5's f32 synthesizer
+    (v1.json at full width, durations scaled by 5 in its weights) is saved
+    as a released training dir (`G_90000.pth` with a `D_90000.pth` that
+    must be ignored, v1.json as it stands, the frontend's phone table on
+    the model's 64 ids, 4 speakers), exported by `bin/export_bundle` as a
+    subprocess (plain and with --fold_weight_norm), given a `frontend/` in
+    the config.json + params.npz layout, and served through
+    `cli.model.Model` at f32, bf16 and int8: BUNDLE_REQUESTS Mandarin
+    sentences of STREAM_HANZI hanzi (about 4 s each), one request at a
+    time, each once untimed to warm its shapes and then once timed
+    (serve_bundle). Checks: the f32 bundle's int16 audio of both passes
+    equals a SynthesisEngine on the in-memory model with the same seed and
+    frontend within 1 LSB, the folded bundle's within the f32 parity bound
+    (2e-4 on the float wave; 2 * 2e-4 * 0.6 * 32767 / peak + 1 LSB); bf16
+    and int8 against f32 with phase 5's bounds (compare_with_f32); K1 72
+    launches a decode under f32 and bf16, Q0-Q2 only under int8
+    (check_launches); the `tts` CLI, a fresh process on the card, writes
+    the f32 Model's first request's audio at v1's rate within 1 LSB (the
+    CLI's `Model` turns cuDNN's TF32 off, as this script does);
+    `bin/eval_mcd` gives 0.0 for the f32 WAV against itself, and the
+    bf16 and int8 MCDs are printed (figures, not a gate: random weights);
+    a vits2_vocos_v1.json bundle asked for bf16 logs the warning and
+    serves the f32 Model's audio. One `bundle` line, with the phase's
+    wall seconds."""
+    import logging
+
+    from wetts_tpu_torch.cli.model import Model
+    from wetts_tpu_torch.serving.engine import SynthesisEngine
+    from wetts_tpu_torch.utils.wav import read_wav, write_wav
+
+    t_phase = time.perf_counter()
+    check(cfg.model.use_sdp, "the duration shift needs the SDP")
+    model = copy.deepcopy(model).eval()
+    with torch.no_grad():
+        p = dict(model.named_parameters())
+        p["dp.flows.0.m"][0] -= (BUNDLE_LOG_DURATION_SHIFT
+                                 * torch.exp(p["dp.flows.0.logs"][0]))
+    vocab, lexicon, pinyin2id, _, _, phones = frontend_tables()
+    # the frontend's phones (sil first) on the model's N_PHONES ids
+    phone2id = {ph: i % N_PHONES for i, ph in enumerate(phones)}
+    hanzi = [w for w in lexicon.words() if len(w) == 1]
+    rng = np.random.default_rng(SEED)
+    texts = [stream_text(rng, hanzi, 1) for _ in range(BUNDLE_REQUESTS)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp")
+        write_tables(exp, phone2id, CONFIG)
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        torch.save({"model": sd, "iteration": BUNDLE_STEP},
+                   os.path.join(exp, f"G_{BUNDLE_STEP}.pth"))
+        torch.save({"model": {}, "iteration": BUNDLE_STEP},
+                   os.path.join(exp, f"D_{BUNDLE_STEP}.pth"))
+        bundle, folded = (os.path.join(tmp, "bundle"),
+                          os.path.join(tmp, "folded"))
+        t0 = time.perf_counter()
+        for out_dir, extra in ((bundle, ()), (folded, ("--fold_weight_norm",))):
+            run_module("wetts_tpu_torch.bin.export_bundle",
+                       "--cfg", os.path.join(exp, "config.json"),
+                       "--model_dir", exp,
+                       "--phone_table", os.path.join(exp, "phones.txt"),
+                       "--speaker_table", os.path.join(exp, "speaker.txt"),
+                       "--out_dir", out_dir, *extra)
+        out["export_s"] = time.perf_counter() - t0
+        check(sorted(os.listdir(bundle)) == ["config.json", "params.npz",
+                                             "phones.txt", "speaker.txt"],
+              f"exported bundle holds {sorted(os.listdir(bundle))}")
+        write_frontend_bundle(os.path.join(bundle, "frontend"), vocab,
+                              pinyin2id)
+        os.symlink(os.path.join(bundle, "frontend"),
+                   os.path.join(folded, "frontend"))
+
+        served = {name: serve_bundle(bundle, name, texts)
+                  for name in ("f32", "bf16", "int8")}
+        f32 = served["f32"]
+        # the in-memory model behind the same frontend, the same seed
+        direct = SynthesisEngine(
+            cfg, model, phone2id, {f"spk{i}": i for i in range(N_SPEAKERS)},
+            f32["model"].engine.frontend, noise_scale=0.667,
+            length_scale=1.0, noise_scale_w=0.8)
+
+        def int16(wave):
+            peak = max(0.01, float(np.abs(wave).max()))
+            return (wave * 32767.0 / peak * 0.6).astype(np.int16)
+
+        # the warm-up pass's draws, then the timed pass's
+        want = [int16(direct.synthesize(t, "spk1")) for t in texts + texts]
+        got = f32["warm_audio"] + f32["audio"]
+        out["f32_vs_in_memory_lsb"] = int16_max_diff(got, want)
+        check(out["f32_vs_in_memory_lsb"] <= 1, "the f32 bundle's audio is "
+              f"{out['f32_vs_in_memory_lsb']} LSB from the in-memory model's")
+        fold = serve_bundle(folded, "f32", texts)
+        peak = min(max(0.01, float(np.abs(w).max())) for w in
+                   f32["model"].engine.synthesize.waves)
+        bound = 2 * 2e-4 * 0.6 * 32767 / peak + 1
+        out["folded_vs_in_memory_lsb"] = int16_max_diff(
+            fold["warm_audio"] + fold["audio"], want)
+        out["folded_bound_lsb"] = bound
+        check(out["folded_vs_in_memory_lsb"] <= bound,
+              f"the folded bundle's audio is {out['folded_vs_in_memory_lsb']}"
+              f" LSB from the in-memory model's (bound {bound})")
+        out["drift"] = {
+            name: compare_with_f32(f"bundle {name}", served[name]["waves"],
+                                   f32["waves"], floor)
+            for name, floor in (("bf16", 0.995), ("int8", 0.99))}
+        out.update({name: s["report"] for name, s in served.items()})
+        out["f32_folded"] = fold["report"]
+        del fold, direct
+
+        # the tts CLI, a fresh process on the card, against the first
+        # request of the f32 Model above (the same draws)
+        wav = os.path.join(tmp, "cli.wav")
+        run_module("wetts_tpu_torch.cli.tts", "--model-dir", bundle,
+                   "--text", texts[0], "--speaker", "spk1", "--wav", wav)
+        got, rate = read_wav(wav)
+        check(rate == cfg.data.sampling_rate, f"CLI WAV at {rate} Hz")
+        got = np.round(got * 32768.0).astype(np.int16)
+        out["cli_vs_in_process_lsb"] = int16_max_diff(
+            [got], f32["warm_audio"][:1])
+        check(out["cli_vs_in_process_lsb"] <= 1, "the tts CLI's audio is "
+              f"{out['cli_vs_in_process_lsb']} LSB from the in-process "
+              "Model's")
+
+        # MCD of each precision's first request against f32's
+        gen, ref_dir = os.path.join(tmp, "gen"), os.path.join(tmp, "ref")
+        os.makedirs(gen)
+        os.makedirs(ref_dir)
+        lines = []
+        for name, key in (("self", "f32"), ("bf16", "bf16"),
+                          ("int8", "int8")):
+            write_wav(os.path.join(gen, f"{name}.wav"),
+                      served[key]["audio"][0], cfg.data.sampling_rate)
+            write_wav(os.path.join(ref_dir, f"{name}.wav"),
+                      f32["audio"][0], cfg.data.sampling_rate)
+            lines.append(f"{ref_dir}/{name}.wav|spk1|-\n")
+        with open(os.path.join(tmp, "test.txt"), "w") as f:
+            f.writelines(lines)
+        mcd = json.loads(run_module(
+            "wetts_tpu_torch.bin.eval_mcd", "--test_file",
+            os.path.join(tmp, "test.txt"),
+            "--gen_dir", gen).strip().splitlines()[-1])
+        out["mcd_db"] = mcd["per_pair"]
+        check(mcd["n_pairs"] == 3 and mcd["per_pair"]["self"] == 0.0,
+              f"MCD {mcd}")
+        del served, f32
+        torch.cuda.empty_cache()
+
+        # a Vocos bundle asked for bf16: the warning, and f32's audio
+        from wetts_tpu_torch.models.synthesizer import Synthesizer
+
+        vocos = os.path.join(tmp, "vocos")
+        raw = {"sil": 0, **{f"p{i}": i for i in range(1, N_PHONES)}}
+        write_tables(vocos, raw, VITS2_CONFIG)
+        vcfg = vits2_config(VITS2_CONFIG, N_PHONES)
+        torch.save({"model": random_init_(Synthesizer(vcfg),
+                                          SEED).state_dict()},
+                   os.path.join(vocos, "G_1.pth"))
+        caught = []
+        handler = logging.Handler()
+        handler.emit = caught.append
+        log = logging.getLogger("wetts_tpu_torch.serving")
+        log.addHandler(handler)
+        try:
+            half = Model(vocos, precision="bf16")
+        finally:
+            log.removeHandler(handler)
+        check(half.engine.precision == "f32" and any(
+            "serving the f32 decoder instead" in r.getMessage()
+            for r in caught), "the Vocos bundle at bf16 did not warn and "
+                              "serve f32")
+        text = phrase(np.random.default_rng(SEED), 60)
+        got = [half.synthesis(text, "spk1") for _ in range(2)]
+        exact = Model(vocos)
+        want = [exact.synthesis(text, "spk1") for _ in range(2)]
+        check(int16_max_diff(got, want) == 0,
+              "the Vocos bundle at bf16 differs from f32")
+        out["vocos_bf16_served"] = half.engine.precision
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("bundle " + json.dumps(out))
+    return out
+
+
 def compare_with_f32(name: str, audios, exact, corr_floor: float) -> dict:
     """A reduced engine's requests against the f32 engine's on the same
     seed: equal lengths (the duration path stays f32), and audio within the
@@ -2233,10 +2589,11 @@ def main() -> int:
     chain = phase_chain()
 
     # ---- the serving main path, once per precision (same seeds each time)
-    exact, synth, launches = serve_precision(cfg, "f32", {}, SEED, True)
-    half, synth_bf16, launches_bf16 = serve_precision(
+    exact, synth, launches, v1_model = serve_precision(cfg, "f32", {}, SEED,
+                                                       True)
+    half, synth_bf16, launches_bf16, _ = serve_precision(
         cfg, "bf16", {"half": True}, SEED, False)
-    quant, synth_int8, launches_int8 = serve_precision(
+    quant, synth_int8, launches_int8, _ = serve_precision(
         cfg, "int8", {"quantize": True}, SEED, True)
     compare_with_f32("bf16", half, exact, 0.995)
     compare_with_f32("int8", quant, exact, 0.99)
@@ -2244,6 +2601,8 @@ def main() -> int:
         s["precision"]: {"audio_s_per_s": s["audio_s_per_s"],
                          "batch_ms_p50": s["batch_ms_p50"]}
         for s in (synth, synth_bf16, synth_int8)}))
+    bundle = phase_bundle(cfg, v1_model)
+    del v1_model
     torch.cuda.empty_cache()
     fe = build_frontend()
     phase_streaming(cfg, card, fe)
@@ -2290,14 +2649,21 @@ def main() -> int:
     # the row scale over its one call (conv_pre's output), K2 over the
     # three v1 training shapes. The upsamples are bound by bytes (their
     # sum; the first alone by operations, the `bound_by` of each `Q2` line)
+    def served(name, key):
+        """launches of the bundle phase's requests at `name`."""
+        return sum(bundle[b]["launches"][key] for b in
+                   (("f32", "f32_folded") if name == "f32" else (name,)))
+
     kernels = [
         kernel("mrf_stage", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
-               launches["mrf_stage"] + vits2["f32"]["mrf_stage"],
+               launches["mrf_stage"] + vits2["f32"]["mrf_stage"]
+               + served("f32", "mrf_stage"),
                rows, "operations", total(rows, "library_ms")),
         kernel("mrf_stage_bf16", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
-               launches_bf16["mrf_stage"] + vits2["bf16"]["mrf_stage"],
+               launches_bf16["mrf_stage"] + vits2["bf16"]["mrf_stage"]
+               + served("bf16", "mrf_stage"),
                rows_bf16, "operations", total(rows_bf16, "library_ms")),
         kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
                train_launches["mas"], v1_rows, mas_bound_by),
@@ -2307,16 +2673,19 @@ def main() -> int:
                vits2_mas_launches, [k2_vits2],
                "bytes" if k2_vits2["bound_by"] == "bytes" else "operations"),
         kernel("int8_conv", "int8_mrf_conv.cu", q8,
-               launches_int8["int8_conv"] + vits2["int8"]["int8_conv"],
+               launches_int8["int8_conv"] + vits2["int8"]["int8_conv"]
+               + served("int8", "int8_conv"),
                q["stage"], "operations", total(q["stage"], "library_ms")),
         kernel("int8_conv_transpose", "int8_mrf_conv.cu", q8,
                launches_int8["int8_conv_transpose"]
-               + vits2["int8"]["int8_conv_transpose"], q["up"], "bytes",
+               + vits2["int8"]["int8_conv_transpose"]
+               + served("int8", "int8_conv_transpose"), q["up"], "bytes",
                total(q["up"], "library_ms")),
         kernel("int8_row_scale", "int8_conv.cu",
                "wetts_tpu/models/hifigan_fast.py:141",
                launches_int8["int8_row_scale"]
-               + vits2["int8"]["int8_row_scale"], q["scale"], "bytes"),
+               + vits2["int8"]["int8_row_scale"]
+               + served("int8", "int8_row_scale"), q["scale"], "bytes"),
     ]
     for name in ("int8", "bf16"):
         c = chain[name]

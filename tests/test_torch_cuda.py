@@ -6,7 +6,7 @@ matrix chains; the port's synthesis (f32, bf16, int8) and training step
 on the GPU against the CPU; and K1 and the int8 stage at the streamed
 decoder's chunk shapes, and a streamed synthesis whose batched tail equals
 its per-chunk decode on the card at each precision; the Vocos decoder's
-iSTFT at any batch size.
+iSTFT at any batch size; `cli.model.Model` on a bundle, GPU against CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -867,3 +867,51 @@ def test_istft_on_gpu_ignores_the_batch(cuda, b):
     assert got.shape == (b, 60 * 256)
     torch.testing.assert_close(got, want.expand(b, -1), rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_model_bundle_on_gpu_matches_cpu(cuda, tmp_path, precision):
+    """`cli.model.Model` on a released-layout bundle (a numbered
+    `G_<step>.pth`) on the card against the same bundle on the CPU, the
+    normal draws made on the CPU for both: f32 within the int16 bound that
+    2e-4 on the float wave implies after the peak scaling (2 * 2e-4 *
+    19660.2 / peak + 1), int8 within the reduced decoders' 3e-2
+    (correlation above 0.99); K1 or the int8 kernels launched."""
+    import json
+
+    from chip_smoke import cpu_drawn_noise
+    from wetts_tpu_torch.cli.model import Model
+
+    cfg_dict = {
+        "train": {"segment_size": 256},
+        "data": {"filter_length": 64, "hop_length": 16, "win_length": 64},
+        "model": {"inter_channels": 32, "hidden_channels": 32,
+                  "filter_channels": 64, "n_layers": 2,
+                  "resblock_kernel_sizes": [3, 5],
+                  "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5]],
+                  "upsample_rates": [4, 4], "upsample_initial_channel": 128,
+                  "upsample_kernel_sizes": [8, 8], "gin_channels": 16}}
+    cfg = Config.from_dict(dict(cfg_dict, num_phones=24, num_speakers=3))
+    torch.save({"model": random_init_(Synthesizer(cfg), 0).state_dict()},
+               tmp_path / "G_10.pth")
+    (tmp_path / "config.json").write_text(json.dumps(cfg_dict))
+    (tmp_path / "phones.txt").write_text(
+        "".join(f"p{i} {i}\n" for i in range(1, 24)) + "sil 0\n")
+    (tmp_path / "speaker.txt").write_text("spk0 0\nspk1 1\nspk2 2\n")
+    text = "p1 p5 p9 p2 p7 p3 p11 p4 p8 p2"
+    with cpu_drawn_noise(5):
+        want_m = Model(str(tmp_path), precision=precision, device="cpu")
+        wave_f = want_m.engine.synthesize(text, "spk1")
+        want = want_m.synthesis(text, "spk1").astype(np.int32)
+        counters = (mrf_stage, int8_conv1d)
+        before = [f.launches for f in counters]
+        got = Model(str(tmp_path), precision=precision).synthesis(
+            text, "spk1").astype(np.int32)
+    moved = [f.launches - b for f, b in zip(counters, before)]
+    # 24 MRF convs a decode (2 stages of 2 branches of 3 conv pairs)
+    assert moved == ([24, 0] if precision == "f32" else [0, 24])
+    assert got.shape == want.shape and np.abs(want).max() > 1000
+    peak = max(0.01, float(np.abs(wave_f).max()))
+    atol = 2e-4 if precision == "f32" else 3e-2
+    assert np.abs(got - want).max() <= 2 * atol * 0.6 * 32767 / peak + 1
+    assert np.corrcoef(got, want)[0, 1] > 0.99

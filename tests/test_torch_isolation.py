@@ -50,7 +50,10 @@ PROBE = textwrap.dedent("""
         "serving.batcher", "bin.stream_client", "assets", "text.tn",
         "text.sandhi", "text.lexicon", "text.g2p_en", "text.pinyin",
         "text.frontend", "cli.frontend", "models.bert_frontend",
-        "frontend.scorer", "models.vocos", "bin.voice_convert"]
+        "frontend.scorer", "models.vocos", "bin.voice_convert",
+        "cli.model", "cli.tts", "cli.hub", "bin.export_bundle",
+        "bin.eval_mcd", "serving.embed", "text.native",
+        "utils.onnx_import"]
     missing = [m for m in expected
                if "wetts_tpu_torch." + m not in sys.modules]
     assert not missing, missing
@@ -88,6 +91,7 @@ PROBE = textwrap.dedent("""
             else:
                 raise AssertionError(option + " without a GPU did not raise")
         from wetts_tpu_torch.bin import infer_vits, train_vits, voice_convert
+        from wetts_tpu_torch.cli import model, tts
         from wetts_tpu_torch.tools import probe_int8
         from wetts_tpu_torch.train.trainer import Trainer
         assert probe_int8.main() == 1  # no GPU: no result
@@ -110,7 +114,11 @@ PROBE = textwrap.dedent("""
                          "--model_dir", sys.argv[1], "--phone_table", phones,
                          "--speaker_table", phones, "--wav", "unused",
                          "--source_speaker", "a", "--target_speaker", "a",
-                         "--out", "unused"])):
+                         "--out", "unused"]),
+                    lambda: model.Model(sys.argv[1]),
+                    lambda: tts.main(
+                        ["--model-dir", sys.argv[1], "--text", "a",
+                         "--wav", "unused"])):
             try:
                 run()
             except RuntimeError as e:

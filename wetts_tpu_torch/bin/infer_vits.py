@@ -10,11 +10,14 @@ writes int16-scaled wavs (audio * 32767 / max(0.01, |a|max) * 0.6).
         --speaker_table speaker.txt --test_file test.txt --outdir out \
         --precision int8
 
-`--model_dir` holds either a `params.npz` bundle (utils/params_io.py) or the
-`ckpt_<step>.pt` files a `Trainer` wrote (the latest is taken).
+`--model_dir` holds any artifact `cli/model.py:load_params` reads, as the
+JAX package's `infer_vits` does: a released `G.pth` / `G_<step>.pth` (the
+highest step), a `final.onnx`, a `params.npz` bundle (utils/params_io.py),
+or the `ckpt_<step>.pt` files a `Trainer` wrote (the latest is taken).
 `--precision` is the decoder's: f32, bf16 (bf16 flow and decoder) or int8
 (bf16 flow, int8 decoder convolutions). Runs on the GPU and raises without
-one; `--device cpu` asks for the CPU.
+one; `--device cpu` asks for the CPU. f32 convolutions run in f32, not in
+cuDNN's default TF32 (`cli/model.py:exact_f32`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(description="VITS inference (PyTorch/CUDA)")
     p.add_argument("--cfg", required=True)
     p.add_argument("--model_dir", required=True,
-                   help="directory with params.npz or ckpt_<step>.pt")
+                   help="directory with G_*.pth, final.onnx, params.npz or "
+                        "ckpt_<step>.pt")
     p.add_argument("--phone_table", required=True)
     p.add_argument("--speaker_table", default=None)
     p.add_argument("--test_file", required=True)
@@ -44,35 +48,11 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_model(model_dir: str, cfg):
-    """A `Synthesizer` with the weights of `model_dir`: a `params.npz`
-    bundle, else the latest `ckpt_<step>.pt` of a `Trainer`."""
-    import torch
-
-    from wetts_tpu_torch.models.synthesizer import Synthesizer
-    from wetts_tpu_torch.train.checkpoint import latest_step
-    from wetts_tpu_torch.utils.convert import params_from_jax
-    from wetts_tpu_torch.utils.params_io import load_params_npz
-
-    model = Synthesizer(cfg)
-    npz = os.path.join(model_dir, "params.npz")
-    if os.path.exists(npz):
-        model.load_state_dict(params_from_jax(load_params_npz(npz), cfg))
-        return model
-    step = latest_step(model_dir)
-    if step is None:
-        raise FileNotFoundError(
-            f"{model_dir} holds neither params.npz nor a ckpt_<step>.pt")
-    payload = torch.load(os.path.join(model_dir, f"ckpt_{step}.pt"),
-                         map_location="cpu", weights_only=True)
-    model.load_state_dict(payload["net_g"])
-    return model
-
-
 def main(argv=None):
     args = get_args(argv)
     import numpy as np
 
+    from wetts_tpu_torch.cli.model import exact_f32, load_model
     from wetts_tpu_torch.config import Config
     from wetts_tpu_torch.data.dataset import read_table
     from wetts_tpu_torch.serving.engine import SynthesisEngine
@@ -80,6 +60,7 @@ def main(argv=None):
     from wetts_tpu_torch.utils.wav import write_wav
 
     device = resolve_device(args.device)  # before anything is loaded
+    exact_f32()
     cfg = Config.from_json(args.cfg)
     phone2id = read_table(args.phone_table)
     speaker2id = read_table(args.speaker_table) if args.speaker_table else None

@@ -15,9 +15,11 @@ written as 16-bit PCM at `cfg.data.sampling_rate`.
         --speaker_table speaker.txt --wav in.wav --source_speaker spk0 \
         --target_speaker spk1 --out out.wav
 
-`--model_dir` holds a `params.npz` bundle or a `Trainer`'s `ckpt_<step>.pt`
-files (`bin/infer_vits.py:load_model`). Runs on the GPU and raises without
-one; `--device cpu` asks for the CPU.
+`--model_dir` holds any artifact `cli/model.py:load_model` reads but a
+final.onnx, which does not carry the posterior encoder that voice
+conversion runs. Runs on the GPU and raises without one; `--device cpu`
+asks for the CPU. f32 convolutions run in f32, not in cuDNN's default TF32
+(`cli/model.py:exact_f32`).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from wetts_tpu_torch.bin.infer_vits import load_model
+    from wetts_tpu_torch.cli.model import exact_f32, load_model
     from wetts_tpu_torch.config import Config
     from wetts_tpu_torch.data.dataset import read_table
     from wetts_tpu_torch.train.step import compute_spec
@@ -55,6 +57,7 @@ def main(argv=None):
     from wetts_tpu_torch.utils.wav import read_wav, resample_poly, write_wav
 
     device = resolve_device(args.device)  # before anything is loaded
+    exact_f32()
     cfg = Config.from_json(args.cfg)
     phone2id = read_table(args.phone_table)
     speaker2id = read_table(args.speaker_table)

@@ -10,9 +10,10 @@ two token-level linear heads (polyphone classes, prosody ranks). `export`
 The module tree keeps the reference's state-dict names (`bert.embeddings.*`,
 `bert.encoder.layer.N.attention.self.{query,key,value}`,
 `transform.self_attn.in_proj_weight`, `transform.linear1`,
-`phone_classifier`, ...), so `wetts_tpu.models.bert_frontend.
-convert_frontend_torch` reads a port state_dict as it reads a reference
-checkpoint; `utils/convert.py:frontend_params_from_jax` is its inverse.
+`phone_classifier`, ...), so `convert_frontend_torch` (here, and its
+original in `wetts_tpu.models.bert_frontend`) reads a port state_dict as it
+reads a reference checkpoint; `utils/convert.py:frontend_params_from_jax`
+is its inverse.
 
 Attention is plain tensor code with the JAX model's numerics: scores in
 f32, key padding filled with -1e9 (not -inf), softmax in f32. Layer norms
@@ -24,8 +25,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -236,3 +238,119 @@ class FrontendModel(nn.Module):
         """Bare-ids path with softmax outputs (reference :63-73)."""
         phone, prosody = self(input_ids, torch.ones_like(input_ids))
         return torch.softmax(phone, -1), torch.softmax(prosody, -1)
+
+
+# ---------------------------------------------------------------------------
+# reference state_dicts -> flax trees (wetts_tpu/models/bert_frontend.py:182-260)
+# ---------------------------------------------------------------------------
+
+
+def convert_hf_bert(state_dict: Dict[str, np.ndarray], cfg: BertConfig
+                    ) -> Dict:
+    """HuggingFace BertModel state_dict -> the flax BertEncoder's params
+    (numpy leaves)."""
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+
+    def lin(prefix):
+        return {"kernel": sd[prefix + ".weight"].T,
+                "bias": sd[prefix + ".bias"]}
+
+    def ln(prefix):
+        return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+    params = {
+        "word_embeddings": {
+            "embedding": sd["embeddings.word_embeddings.weight"]},
+        "position_embeddings": {
+            "embedding": sd["embeddings.position_embeddings.weight"]},
+        "token_type_embeddings": {
+            "embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "embeddings_norm": ln("embeddings.LayerNorm"),
+    }
+    for i in range(cfg.num_layers):
+        b = f"encoder.layer.{i}"
+        params[f"layer_{i}"] = {
+            "attention": {
+                "query": lin(f"{b}.attention.self.query"),
+                "key": lin(f"{b}.attention.self.key"),
+                "value": lin(f"{b}.attention.self.value"),
+                "output": lin(f"{b}.attention.output.dense"),
+            },
+            "attention_norm": ln(f"{b}.attention.output.LayerNorm"),
+            "intermediate": lin(f"{b}.intermediate.dense"),
+            "ffn_output": lin(f"{b}.output.dense"),
+            "output_norm": ln(f"{b}.output.LayerNorm"),
+        }
+    return params
+
+
+def convert_frontend_torch(state_dict: Dict[str, np.ndarray]):
+    """Full reference FrontendModel state_dict -> (params, meta), the port's
+    own copy of `wetts_tpu.models.bert_frontend.convert_frontend_torch`
+    with numpy leaves.
+
+    Accepts the tensors of wetts/frontend/model.py:21-49 under their
+    state-dict names (`bert.*`, `transform.*`, `phone_classifier`,
+    `prosody_classifier`): the naming of the torch checkpoints, of the
+    exported final.onnx initializers (export_forward traces every
+    parameter, so nothing is missing from the ONNX bundle) and of the
+    port's `FrontendModel`.
+
+    Returns (params, dict(bert=BertConfig, num_polyphones, num_prosody,
+    transform_heads, transform_ffn)); head counts follow the reference's
+    d_model dispatch (model.py:33-42: 768 -> transform nhead 8,
+    312 (TinyBERT) -> 12; HF BERT heads are hidden//64).
+    `utils/convert.py:frontend_params_from_jax` takes both to the port's
+    state_dict.
+    """
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+    bert_sd = {k[len("bert."):]: v for k, v in sd.items()
+               if k.startswith("bert.") and ".pooler." not in k}
+    hidden = bert_sd["embeddings.word_embeddings.weight"].shape[1]
+    n_layers = 1 + max(int(k.split(".")[2]) for k in bert_sd
+                       if k.startswith("encoder.layer."))
+    cfg = BertConfig(
+        vocab_size=bert_sd["embeddings.word_embeddings.weight"].shape[0],
+        hidden_size=hidden,
+        num_layers=n_layers,
+        num_heads=max(1, hidden // 64) if hidden % 64 == 0 else 12,
+        intermediate_size=bert_sd[
+            "encoder.layer.0.intermediate.dense.weight"].shape[0],
+        max_position=bert_sd[
+            "embeddings.position_embeddings.weight"].shape[0],
+        type_vocab_size=bert_sd[
+            "embeddings.token_type_embeddings.weight"].shape[0])
+
+    def lin(prefix):
+        return {"kernel": sd[prefix + ".weight"].T.astype(np.float32),
+                "bias": sd[prefix + ".bias"].astype(np.float32)}
+
+    def norm(prefix):
+        return {"scale": sd[prefix + ".weight"].astype(np.float32),
+                "bias": sd[prefix + ".bias"].astype(np.float32)}
+
+    params = {
+        "bert": convert_hf_bert(bert_sd, cfg),
+        "transform": {
+            "in_proj": {
+                "kernel": sd["transform.self_attn.in_proj_weight"
+                             ].T.astype(np.float32),
+                "bias": sd["transform.self_attn.in_proj_bias"
+                           ].astype(np.float32)},
+            "out_proj": lin("transform.self_attn.out_proj"),
+            "linear1": lin("transform.linear1"),
+            "linear2": lin("transform.linear2"),
+            "norm1": norm("transform.norm1"),
+            "norm2": norm("transform.norm2"),
+        },
+        "phone_classifier": lin("phone_classifier"),
+        "prosody_classifier": lin("prosody_classifier"),
+    }
+    meta = {
+        "bert": cfg,
+        "num_polyphones": sd["phone_classifier.weight"].shape[0],
+        "num_prosody": sd["prosody_classifier.weight"].shape[0],
+        "transform_heads": 12 if hidden == 312 else 8,
+        "transform_ffn": sd["transform.linear1.weight"].shape[0],
+    }
+    return params, meta

@@ -1,4 +1,13 @@
-"""The weight bridge: flax param trees -> the port's state_dicts.
+"""The weight bridge between flax param trees and the port's state_dicts.
+
+`convert_synthesizer(state_dict, cfg, subset)` is the port's own copy of
+`wetts_tpu.utils.convert.convert_synthesizer` and its mappers (numpy only):
+a reference `SynthesizerTrn` state_dict (a released `G_*.pth`, the
+initializers of a `final.onnx`, or the port's own state_dict, which keeps the
+reference's names) -> the flax tree, with the JAX package's handling of
+checkpoint quirks (folded weight norm, the unused `post_transformer`) and
+its errors on unmapped tensors. `cli/model.py` loads every artifact through
+it and then `params_from_jax`.
 
 `params_from_jax(tree, cfg)` is the inverse of
 `wetts_tpu.utils.convert.convert_synthesizer`,
@@ -25,9 +34,9 @@ port's modules keep. Layout rules (the inverse of convert.py's table):
 | emb, emb_g/embedding          | emb.weight, emb_g.weight                 |
 | ElementwiseAffine m/logs [C]  | m/logs [C, 1]                            |
 
-Every leaf of the tree must map; an unmapped leaf raises. The other
-direction needs no code here: the port keeps the reference's state_dict
-names, so the JAX package's own converters read the port's state_dicts.
+Every leaf of the tree must map; an unmapped leaf raises. The port keeps
+the reference's state_dict names, so the JAX package's own converters read
+the port's state_dicts as `convert_synthesizer` does.
 """
 
 from __future__ import annotations
@@ -401,3 +410,376 @@ def frontend_params_from_jax(params: Dict, meta: Dict
         m.dense((nm,), nm)
     m.check_all_used()
     return m.state
+
+
+# ---------------------------------------------------------------------------
+# reference state_dicts -> flax trees (wetts_tpu/utils/convert.py:31-397)
+# ---------------------------------------------------------------------------
+
+
+def _conv_w(w: np.ndarray) -> np.ndarray:
+    """[O, I, K] -> [K, I, O]."""
+    return np.ascontiguousarray(np.transpose(w, (2, 1, 0)))
+
+
+def _dense_w(w: np.ndarray) -> np.ndarray:
+    """[O, I] or [O, I, 1] -> [I, O]."""
+    if w.ndim == 3:
+        w = w[:, :, 0]
+    return np.ascontiguousarray(w.T)
+
+
+def _conv2d_w(w: np.ndarray) -> np.ndarray:
+    """[O, I, Kh, Kw] -> [Kh, Kw, I, O]."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _g(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.reshape(-1))
+
+
+def _set(tree: Dict, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = np.asarray(value, dtype=np.float32)
+
+
+class _Mapper:
+    """Collects torch (name, tensor) pairs into a flax param dict."""
+
+    def __init__(self):
+        self.params: Dict[str, Any] = {}
+        self.unused = []
+
+    # -- building blocks ------------------------------------------------
+    def _wn_pair(self, tname: str, sd: Dict, norm_axes):
+        """(v, g) for a weight-normed tensor; folds when the checkpoint was
+        exported with `remove_weight_norm` (export_onnx.py:80-82) and only
+        carries the plain `weight` (w == g * v/||v|| holds with v = w,
+        g = ||w|| over `norm_axes`, torch weight_norm dim=0 semantics)."""
+        if tname + ".weight_v" in sd:
+            return sd.pop(tname + ".weight_v"), sd.pop(tname + ".weight_g")
+        w = sd.pop(tname + ".weight")
+        g = np.sqrt((w.astype(np.float64) ** 2).sum(axis=norm_axes))
+        return w, g.astype(w.dtype)
+
+    def conv1d(self, tname: str, sd: Dict, path, dense=False, wn=False):
+        """Map a torch Conv1d (possibly weight-normed) at `tname`."""
+        if wn:
+            v, g = self._wn_pair(tname, sd, norm_axes=(1, 2))
+            _set(self.params, path + ("v",), _conv_w(v))
+            _set(self.params, path + ("g",), _g(g))
+        else:
+            w = sd.pop(tname + ".weight")
+            if dense:
+                _set(self.params, path + ("kernel",), _dense_w(w))
+            else:
+                _set(self.params, path + ("kernel",), _conv_w(w))
+        b = sd.pop(tname + ".bias", None)
+        if b is not None:
+            _set(self.params, path + ("bias",), b)
+
+    def conv_transpose(self, tname: str, sd: Dict, path, wn=True):
+        if wn:
+            v, g = self._wn_pair(tname, sd, norm_axes=(1, 2))
+            _set(self.params, path + ("v",), v)
+            _set(self.params, path + ("g",), _g(g))
+        else:
+            _set(self.params, path + ("kernel",), sd.pop(tname + ".weight"))
+        b = sd.pop(tname + ".bias", None)
+        if b is not None:
+            _set(self.params, path + ("bias",), b)
+
+    def conv2d(self, tname: str, sd: Dict, path, wn=True):
+        if wn:
+            v, g = self._wn_pair(tname, sd, norm_axes=(1, 2, 3))
+            _set(self.params, path + ("v",), _conv2d_w(v))
+            _set(self.params, path + ("g",), _g(g))
+        else:
+            _set(self.params, path + ("kernel",), _conv2d_w(
+                sd.pop(tname + ".weight")))
+        b = sd.pop(tname + ".bias", None)
+        if b is not None:
+            _set(self.params, path + ("bias",), b)
+
+    def layer_norm(self, tname: str, sd: Dict, path):
+        _set(self.params, path + ("ln", "scale"), sd.pop(tname + ".gamma"))
+        _set(self.params, path + ("ln", "bias"), sd.pop(tname + ".beta"))
+
+    def linear(self, tname: str, sd: Dict, path):
+        _set(self.params, path + ("kernel",), _dense_w(sd.pop(tname + ".weight")))
+        b = sd.pop(tname + ".bias", None)
+        if b is not None:
+            _set(self.params, path + ("bias",), b)
+
+    # -- composite modules ----------------------------------------------
+    def wn_block(self, tname: str, sd: Dict, path, n_layers: int,
+                 has_cond: bool):
+        cond_present = (tname + ".cond_layer.weight_v" in sd
+                        or tname + ".cond_layer.weight" in sd)  # folded
+        if has_cond and cond_present:
+            self.conv1d(tname + ".cond_layer", sd, path + ("cond_layer",),
+                        wn=True)
+        elif cond_present:
+            # zero-gin cond layer exists in torch but is unused
+            sd.pop(tname + ".cond_layer.weight_v", None)
+            sd.pop(tname + ".cond_layer.weight_g", None)
+            sd.pop(tname + ".cond_layer.weight", None)
+            sd.pop(tname + ".cond_layer.bias", None)
+        for i in range(n_layers):
+            self.conv1d(f"{tname}.in_layers.{i}", sd, path + (f"in_{i}",),
+                        wn=True)
+            self.conv1d(f"{tname}.res_skip_layers.{i}", sd,
+                        path + (f"res_skip_{i}",), wn=True)
+
+    def mha(self, tname: str, sd: Dict, path, rel=True):
+        for nm in ("conv_q", "conv_k", "conv_v", "conv_o"):
+            self.conv1d(f"{tname}.{nm}", sd, path + (nm,), dense=True)
+        if rel and (tname + ".emb_rel_k") in sd:
+            _set(self.params, path + ("emb_rel_k",), sd.pop(tname + ".emb_rel_k"))
+            _set(self.params, path + ("emb_rel_v",), sd.pop(tname + ".emb_rel_v"))
+
+    def ffn(self, tname: str, sd: Dict, path):
+        self.conv1d(f"{tname}.conv_1", sd, path + ("conv_1",))
+        self.conv1d(f"{tname}.conv_2", sd, path + ("conv_2",))
+
+    def encoder(self, tname: str, sd: Dict, path, n_layers: int):
+        if (tname + ".spk_emb_linear.weight") in sd:
+            self.linear(tname + ".spk_emb_linear", sd,
+                        path + ("spk_emb_linear",))
+        for i in range(n_layers):
+            self.mha(f"{tname}.attn_layers.{i}", sd, path + (f"attn_{i}",))
+            self.layer_norm(f"{tname}.norm_layers_1.{i}", sd,
+                            path + (f"norm1_{i}",))
+            self.ffn(f"{tname}.ffn_layers.{i}", sd, path + (f"ffn_{i}",))
+            self.layer_norm(f"{tname}.norm_layers_2.{i}", sd,
+                            path + (f"norm2_{i}",))
+
+    def fft(self, tname: str, sd: Dict, path, n_layers: int):
+        if (tname + ".cond_layer.weight_v") in sd:
+            self.conv1d(tname + ".cond_layer", sd, path + ("cond_layer",),
+                        wn=True)
+            self.conv1d(tname + ".cond_pre", sd, path + ("cond_pre",))
+        for i in range(n_layers):
+            self.mha(f"{tname}.self_attn_layers.{i}", sd,
+                     path + (f"self_attn_{i}",), rel=False)
+            self.layer_norm(f"{tname}.norm_layers_0.{i}", sd,
+                            path + (f"norm0_{i}",))
+            self.ffn(f"{tname}.ffn_layers.{i}", sd, path + (f"ffn_{i}",))
+            self.layer_norm(f"{tname}.norm_layers_1.{i}", sd,
+                            path + (f"norm1_{i}",))
+
+    def dds_conv(self, tname: str, sd: Dict, path, n_layers: int = 3):
+        for i in range(n_layers):
+            self.conv1d(f"{tname}.convs_sep.{i}", sd, path + (f"sep_{i}",))
+            self.conv1d(f"{tname}.convs_1x1.{i}", sd, path + (f"pw_{i}",))
+            self.layer_norm(f"{tname}.norms_1.{i}", sd, path + (f"norm1_{i}",))
+            self.layer_norm(f"{tname}.norms_2.{i}", sd, path + (f"norm2_{i}",))
+
+    def conv_flow(self, tname: str, sd: Dict, path):
+        self.conv1d(f"{tname}.pre", sd, path + ("pre",))
+        self.dds_conv(f"{tname}.convs", sd, path + ("convs",))
+        self.conv1d(f"{tname}.proj", sd, path + ("proj",))
+
+    def elementwise_affine(self, tname: str, sd: Dict, path):
+        _set(self.params, path + ("m",), _g(sd.pop(tname + ".m")))
+        _set(self.params, path + ("logs",), _g(sd.pop(tname + ".logs")))
+
+
+class _LenientMapper(_Mapper):
+    """Mapper that skips absent tensors leaf-by-leaf.
+
+    Exported inference graphs omit whole modules (final.onnx has no enc_q;
+    the SDP's reverse path drops one "useless" ConvFlow,
+    duration_predictors.py:255-256), so any leaf may be missing. Skipped
+    leaves keep their freshly-initialized values after the caller's merge.
+    """
+
+    def _skip(self, method, *args, **kwargs):
+        try:
+            method(*args, **kwargs)
+        except KeyError:
+            pass
+
+    def conv1d(self, *a, **k):
+        self._skip(super().conv1d, *a, **k)
+
+    def conv_transpose(self, *a, **k):
+        self._skip(super().conv_transpose, *a, **k)
+
+    def conv2d(self, *a, **k):
+        self._skip(super().conv2d, *a, **k)
+
+    def layer_norm(self, *a, **k):
+        self._skip(super().layer_norm, *a, **k)
+
+    def linear(self, *a, **k):
+        self._skip(super().linear, *a, **k)
+
+    def elementwise_affine(self, *a, **k):
+        self._skip(super().elementwise_affine, *a, **k)
+
+
+def convert_synthesizer(state_dict: Dict[str, np.ndarray], cfg,
+                        subset: bool = False) -> Dict:
+    """Reference SynthesizerTrn state_dict -> flax params for Synthesizer.
+
+    cfg: the port's Config (used for layer counts / feature flags).
+    subset: tolerate missing top-level sections — exported inference graphs
+    carry only the modules they trace (final.onnx has no enc_q; streaming
+    encoder_*.onnx has no dec — export_onnx.py:93-158). The returned partial
+    tree is merged over freshly-initialized params by the caller.
+    """
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+    m = _LenientMapper() if subset else _Mapper()
+    mc = cfg.model
+
+    def has(marker: str) -> bool:
+        return not subset or marker in sd
+
+    # ---- enc_p -------------------------------------------------------
+    if has("enc_p.emb.weight"):
+        _set(m.params, ("enc_p", "emb"), sd.pop("enc_p.emb.weight"))
+        m.encoder("enc_p.encoder", sd, ("enc_p", "encoder"), mc.n_layers)
+        m.conv1d("enc_p.proj", sd, ("enc_p", "proj"))
+
+    # ---- enc_q -------------------------------------------------------
+    if has("enc_q.pre.weight"):
+        m.conv1d("enc_q.pre", sd, ("enc_q", "pre"))
+        m.wn_block("enc_q.enc", sd, ("enc_q", "enc"), 16,
+                   has_cond=mc.gin_channels > 0)
+        m.conv1d("enc_q.proj", sd, ("enc_q", "proj"))
+
+    # ---- flow --------------------------------------------------------
+    ftype = mc.transformer_flow_type if mc.use_transformer_flows else None
+    n_flows = 4 if has("flow.flows.0.pre.weight") else 0
+    if ftype in ("mono_layer_inter_residual", "mono_layer_post_residual"):
+        for i in range(n_flows):
+            base = f"flow.flows.{3 * i}"
+            path = ("flow", f"flow_{i}")
+            m.conv1d(f"{base}.pre", sd, path + ("pre",))
+            m.wn_block(f"{base}.enc", sd, path + ("enc",), 4,
+                       has_cond=mc.gin_channels > 0)
+            m.conv1d(f"{base}.post", sd, path + ("post",))
+            mono = f"flow.flows.{3 * i + 2}"
+            mpath = ("flow", f"mono_{i}")
+            m.encoder(f"{mono}.pre_transformer", sd,
+                      mpath + ("pre_transformer",), 2)
+            m.conv1d(f"{mono}.post", sd, mpath + ("post",))
+    else:
+        for i in range(n_flows):
+            base = f"flow.flows.{2 * i}"
+            path = ("flow", f"flow_{i}")
+            if ftype is None:
+                m.conv1d(f"{base}.pre", sd, path + ("pre",))
+                m.wn_block(f"{base}.enc", sd, path + ("enc",), 4,
+                           has_cond=mc.gin_channels > 0)
+                m.conv1d(f"{base}.post", sd, path + ("post",))
+            elif ftype == "pre_conv":
+                m.encoder(f"{base}.pre_transformer", sd,
+                          path + ("pre_transformer",), 2)
+                m.conv1d(f"{base}.pre", sd, path + ("pre",))
+                m.wn_block(f"{base}.enc", sd, path + ("enc",), 4,
+                           has_cond=mc.gin_channels > 0)
+                m.conv1d(f"{base}.post", sd, path + ("post",))
+                # reference creates an (unused) experimental post_transformer
+                # (flows.py:132-157) — discard its tensors
+                for k in [k for k in sd
+                          if k.startswith(f"{base}.post_transformer.")]:
+                    sd.pop(k)
+            elif ftype == "pre_conv2":
+                m.conv1d(f"{base}.pre", sd, path + ("pre",))
+                m.encoder(f"{base}.pre_transformer", sd,
+                          path + ("pre_transformer",), 1)
+                m.wn_block(f"{base}.enc", sd, path + ("enc",), 4,
+                           has_cond=mc.gin_channels > 0)
+                m.conv1d(f"{base}.post", sd, path + ("post",))
+            elif ftype == "fft":
+                m.conv1d(f"{base}.pre", sd, path + ("pre",))
+                m.fft(f"{base}.enc", sd, path + ("enc",), 1)
+                m.conv1d(f"{base}.post", sd, path + ("post",))
+
+    # ---- duration predictor -----------------------------------------
+    if not has("dp.pre.weight" if mc.use_sdp else "dp.conv_1.weight"):
+        pass
+    elif mc.use_sdp:
+        m.elementwise_affine("dp.flows.0", sd, ("dp", "flow_ea"))
+        for i in range(4):
+            m.conv_flow(f"dp.flows.{1 + 2 * i}", sd,
+                        ("dp", f"flow_conv_{i}"))
+        m.elementwise_affine("dp.post_flows.0", sd, ("dp", "post_flow_ea"))
+        for i in range(4):
+            m.conv_flow(f"dp.post_flows.{1 + 2 * i}", sd,
+                        ("dp", f"post_flow_conv_{i}"))
+        for nm in ("post_pre", "post_proj", "pre", "proj"):
+            m.conv1d(f"dp.{nm}", sd, ("dp", nm))
+        m.dds_conv("dp.post_convs", sd, ("dp", "post_convs"))
+        m.dds_conv("dp.convs", sd, ("dp", "convs"))
+        if mc.gin_channels > 0 and "dp.cond.weight" in sd:
+            m.conv1d("dp.cond", sd, ("dp", "cond"))
+    else:
+        m.conv1d("dp.conv_1", sd, ("dp", "conv_1"))
+        m.layer_norm("dp.norm_1", sd, ("dp", "norm_1"))
+        m.conv1d("dp.conv_2", sd, ("dp", "conv_2"))
+        m.layer_norm("dp.norm_2", sd, ("dp", "norm_2"))
+        m.conv1d("dp.proj", sd, ("dp", "proj"))
+        if mc.gin_channels > 0 and "dp.cond.weight" in sd:
+            m.conv1d("dp.cond", sd, ("dp", "cond"))
+
+    # ---- decoder -----------------------------------------------------
+    if not has("dec.in_conv.weight" if mc.vocoder_type == "vocos"
+               else "dec.conv_pre.weight"):
+        pass
+    elif mc.vocoder_type == "vocos":
+        m.conv1d("dec.in_conv", sd, ("dec", "in_conv"))
+        if "dec.cond.weight" in sd:
+            m.conv1d("dec.cond", sd, ("dec", "cond"))
+        m.layer_norm("dec.norm_pre", sd, ("dec", "norm_pre"))
+        m.layer_norm("dec.norm_post", sd, ("dec", "norm_post"))
+        for i in range(mc.vocos_num_layers):
+            base = f"dec.layers.{i}"
+            path = ("dec", f"layer_{i}")
+            m.conv1d(f"{base}.dw_conv", sd, path + ("dw_conv",))
+            m.layer_norm(f"{base}.norm", sd, path + ("norm",))
+            m.conv1d(f"{base}.pw_conv1", sd, path + ("pw_conv1",))
+            m.conv1d(f"{base}.pw_conv2", sd, path + ("pw_conv2",))
+            _set(m.params, path + ("scale",), _g(sd.pop(f"{base}.scale")))
+        m.conv1d("dec.out_conv", sd, ("dec", "out_conv"))
+    else:
+        m.conv1d("dec.conv_pre", sd, ("dec", "conv_pre"))
+        if "dec.cond.weight" in sd:
+            m.conv1d("dec.cond", sd, ("dec", "cond"))
+        n_up = len(mc.upsample_rates)
+        n_k = len(mc.resblock_kernel_sizes)
+        for i in range(n_up):
+            m.conv_transpose(f"dec.ups.{i}", sd, ("dec", f"up_{i}"), wn=True)
+            for j in range(n_k):
+                base = f"dec.resblocks.{i * n_k + j}"
+                path = ("dec", f"resblock_{i}_{j}")
+                if mc.resblock == "1":
+                    n_c = len(mc.resblock_dilation_sizes[j])
+                    for k in range(n_c):
+                        m.conv1d(f"{base}.convs1.{k}", sd,
+                                 path + (f"conv1_{k}",), wn=True)
+                        m.conv1d(f"{base}.convs2.{k}", sd,
+                                 path + (f"conv2_{k}",), wn=True)
+                else:
+                    for k in range(len(mc.resblock_dilation_sizes[j])):
+                        m.conv1d(f"{base}.convs.{k}", sd,
+                                 path + (f"conv_{k}",), wn=True)
+        m.conv1d("dec.conv_post", sd, ("dec", "conv_post"))
+
+    # ---- speaker embedding ------------------------------------------
+    if "emb_g.weight" in sd:
+        _set(m.params, ("emb_g", "embedding"), sd.pop("emb_g.weight"))
+
+    leftovers = [k for k in sd if not k.endswith("num_batches_tracked")]
+    if subset:
+        # exported graphs carry constant-folded extras ("onnx::Gather_12",
+        # shape constants); a partial import never errors on leftovers
+        leftovers = []
+    if leftovers:
+        raise ValueError(f"unmapped reference tensors: {leftovers[:10]}"
+                         f" (+{max(0, len(leftovers) - 10)} more)")
+    return m.params
