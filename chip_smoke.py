@@ -67,9 +67,14 @@ Phases, each of which must pass (any failure exits non-zero):
 10. train: write a seeded synthetic corpus (64 noise-like utterances of
     3.5-11 s, 4 speakers) to a temporary directory, build `Trainer` from
     v1.json as it stands (batch 32, segment 8192, f32) with seeded random
-    weights, take 1 warm-up and 4 timed steps, save, resume in a second
-    `Trainer` and take one more; check metrics, moved parameters and the
-    first step's alignment, and split one step's device time by phase;
+    weights, take 1 warm-up and 4 timed steps, evaluate once on the corpus
+    as val manifest with the eval media into a recording summary (K1's 72
+    launches per eval-mode decode: each val batch's slice and the media
+    utterance; the media decode, after the optimiser's steps, held to a
+    decode of the live weights through the plain MRF version), save,
+    resume in a second `Trainer` and take one more; check metrics, moved
+    parameters, f32 parameters and optimiser state and the first step's
+    alignment, and split one step's device time by phase;
 11. train VITS2 (`phase_vits2_training`) the same way from
     vits2_vocos_v1.json as it stands (a 24 kHz corpus; noise-scaled MAS,
     the duration discriminator, the multi-period multi-resolution
@@ -78,18 +83,29 @@ Phases, each of which must pass (any failure exits non-zero):
     schedule, K2 held against its plain version and timed on the first
     step's noised scores, the step split by phase (the duration
     discriminator's update too); then one step of vits2_v1.json;
+11b. train VITS2 in bf16 with the WavLM discriminator
+    (`phase_bf16_wd_training`): vits2_vocos_v1.json with `bf16_run` and
+    `use_wd` set on top, a seeded random WavLM at wavlm-base-plus's
+    geometry written as a local HuggingFace directory and read by
+    `Trainer(slm_model_dir=...)`; the same steps, save and resume, every
+    parameter and optimiser state f32, K2 once a step on f32 scores, the
+    step split with the WavLM discriminator's update beside phase 11's f32
+    step without it;
 12. check one training step on the GPU against the CPU at a small size,
     for VITS-base and for a reduced VITS2 config whose MAS noise moves the
     alignment.
-Phases 5, 5b, 7 and 8 are the serving main paths, phases 10 and 11 the
-training main paths and the probe of phase 4 K3's own: each kernel's
+Phases 5, 5b, 7 and 8 are the serving main paths, phases 10, 11 and 11b
+the training main paths and the probe of phase 4 K3's own: each kernel's
 launch count is zeroed just before its path and read just after (under
 `half` every MRF stage goes through K1's bf16 instance and no int8 kernel
 runs; under `quantize` it is the reverse; the Vocos decoder launches none;
-K1 must not move while training, K2 launches once per step); the `kernels`
-line sums each kernel's launches over the serving paths (v1's batches,
-vits2_v1's batch, the bundle phase's requests) and gives K2 one entry per
-training path (v1's, and the VITS2 recipes' at the VITS2 step's shape).
+while training K1 launches only in v1's eval-mode decodes, each val
+batch's slice and the media utterance, and K2 once per step and once per
+val batch); the `kernels` line sums each kernel's launches over the
+serving paths (v1's batches, vits2_v1's batch, the bundle phase's
+requests; K1 also v1 training's eval) and gives K2 one entry per training path (v1's,
+the VITS2 recipes' at the VITS2 step's shape, and the bf16 + WavLM
+discriminator run's at its step's shape).
 The last two lines are the kernels JSON and the device JSON. Imports
 nothing of JAX; needs a CUDA device.
 """
@@ -1069,6 +1085,29 @@ def write_corpus(root: str, rng, sampling_rate: int) -> tuple:
     return tuple(paths)
 
 
+class RecordingSummary:
+    """A `Trainer` summary that keeps what it is given, in place of a
+    TensorBoard writer (the card's machine has no `tensorboard`):
+    `scalars[step]` the last values per tag, `images` and `audio` as
+    (step, tag, array) in order, `flushes` the number of flushes."""
+
+    def __init__(self):
+        self.scalar_steps, self.images, self.audio_clips = {}, [], []
+        self.flushes = 0
+
+    def scalars(self, step: int, values: dict) -> None:
+        self.scalar_steps.setdefault(step, {}).update(values)
+
+    def image(self, step: int, tag: str, img) -> None:
+        self.images.append((step, tag, img))
+
+    def audio(self, step: int, tag: str, wav, sample_rate: int) -> None:
+        self.audio_clips.append((step, tag, wav, sample_rate))
+
+    def flush(self) -> None:
+        self.flushes += 1
+
+
 @contextlib.contextmanager
 def observed_training(record: dict):
     """While active, notes for every training step its frame bucket and the
@@ -1082,6 +1121,7 @@ def observed_training(record: dict):
 
     def mas(neg_cent, mask):
         record.setdefault("mas_inputs", (neg_cent, mask))
+        record.setdefault("mas_dtypes", set()).add(neg_cent.dtype)
         if "mas_events" in record:
             record["mas_events"][0].record()
         path = real_mas(neg_cent, mask)
@@ -1089,8 +1129,10 @@ def observed_training(record: dict):
             record["mas_events"][1].record()
         return path
 
-    def step(cfg, state, batch, generator=None, mark=None):
-        metrics = real_step(cfg, state, batch, generator, mark)
+    def step(cfg, state, batch, generator=None, mark=None,
+             slm_feature_fn=None):
+        metrics = real_step(cfg, state, batch, generator, mark,
+                            slm_feature_fn)
         torch.cuda.synchronize()
         record.setdefault("step_end", []).append(time.perf_counter())
         record.setdefault("buckets", []).append(
@@ -1137,16 +1179,22 @@ VITS2_WATCHED_PARAMS = {
 VITS2_TIMED_STEPS = 3
 
 
-def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
+def train_main_path(cfg, watched: dict, timed_steps: int,
+                    slm_model_dir=None, media: bool = False) -> tuple:
     """The training main path through `Trainer` on a seeded synthetic corpus
     at the config's rate: seeded random weights for every network, 1
-    warm-up and `timed_steps` timed steps, a save, a resume in a second
-    `Trainer` and one more step (K2 and K1's counts zeroed just before and
-    read just after); then checks of the metrics, the moved parameters, K2
-    against its plain version on the first step's scores (noised under
-    noise-scaled MAS), and one more step split by phase with CUDA events.
-    Returns (the result, K2 and K1's launches, the metrics records, the
-    first step's MAS inputs)."""
+    warm-up and `timed_steps` timed steps, (with `media`) one `evaluate` on
+    the corpus as val manifest with the eval media into a
+    `RecordingSummary`, a save, a resume in a second `Trainer` and one
+    more step (K2 and K1's counts zeroed just before and read just after);
+    then checks of the metrics, the moved parameters, f32 parameters and
+    optimiser state, f32 scores into K2, K2 against its plain version on
+    the first step's scores (noised under noise-scaled MAS), the media
+    audio against a decode of the same weights through the plain MRF
+    version, and one more step split by phase with CUDA events.
+    `slm_model_dir`: the WavLM directory of a `use_wd` config. Returns (the
+    result, K2 and K1's launches, the metrics records, the first step's MAS
+    inputs)."""
     from wetts_tpu_torch.models.mrf import mrf_stage
     from wetts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
     from wetts_tpu_torch.train.step import train_step
@@ -1156,19 +1204,22 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
     cfg.train.log_interval = 1  # every step's metrics reach metrics.jsonl
     n_first = TRAIN_WARMUP_STEPS + timed_steps
     record = {}
+    summary = RecordingSummary()
     with tempfile.TemporaryDirectory(prefix="wetts_smoke_") as root:
         manifest, phones, speakers = write_corpus(
             root, np.random.default_rng(SEED), cfg.data.sampling_rate)
         model_dir = os.path.join(root, "exp")
         trainer = Trainer(copy.deepcopy(cfg), model_dir, manifest, phones,
-                          speakers)
+                          speakers, val_manifest=manifest if media else None,
+                          slm_model_dir=slm_model_dir, summary=summary)
         check(trainer.device.type == "cuda", "trainer not on cuda")
         check(trainer.start_step == 0 and len(trainer.dataset)
               == TRAIN_UTTERANCES, "corpus or start step")
         nets = {"G": trainer.state.net_g, "D": trainer.state.net_d,
-                "DUR": trainer.state.net_dur_d}
-        check((nets["DUR"] is None) == ("DUR" not in watched),
-              "duration discriminator built against the config")
+                "DUR": trainer.state.net_dur_d, "WD": trainer.state.net_wd}
+        for k in ("DUR", "WD"):
+            check((nets[k] is None) == (k not in watched),
+                  f"{k} built against the config")
         for i, k in enumerate(watched):
             random_init_(nets[k], SEED + i)
         start = {k: {n: dict(nets[k].named_parameters())[n].detach().clone()
@@ -1181,8 +1232,14 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
             t0 = time.perf_counter()
             check(trainer.train(max_steps=n_first) == n_first, "steps taken")
             t_first = time.perf_counter()
+            if media:
+                decoded = record_decodes(trainer.state.net_g)
+                trainer.evaluate(n_first, epoch=1)
+                del trainer.state.net_g.decode
+                t_eval = time.perf_counter()
             resumed = Trainer(copy.deepcopy(cfg), model_dir, manifest, phones,
-                              speakers)
+                              speakers, slm_model_dir=slm_model_dir,
+                              summary=RecordingSummary())
             check(resumed.start_step == n_first,
                   f"resumed at {resumed.start_step}, not {n_first}")
             check(resumed.train(max_steps=n_first + 1) == n_first + 1,
@@ -1190,20 +1247,39 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
         launches = {"mas": maximum_path.launches, "mrf": mrf_stage.launches}
         peak_bytes = torch.cuda.max_memory_allocated()
         n_steps = n_first + 1
-        check(launches["mas"] == n_steps,
-              f"K2 launches {launches['mas']} != {n_steps} steps")
-        check(launches["mrf"] == 0,
-              f"K1 launched {launches['mrf']} times while training")
+        # the evaluate's forward of each val batch aligns too, and its
+        # decoder runs in eval mode: K1 for each val batch's slice and the
+        # media utterance, 72 launches each for v1
+        n_val = min(8, len(trainer._val_batcher)) if media else 0
+        check(launches["mas"] == n_steps + n_val,
+              f"K2 launches {launches['mas']} != {n_steps} steps + {n_val} "
+              f"val batches")
+        check(record["mas_dtypes"] == {torch.float32},
+              f"K2 given scores of {record['mas_dtypes']}")
+        n_decodes = n_val + 1 if media else 0
+        want_mrf = launches_per_decode(cfg.model, "f32")[0] * n_decodes
+        check(launches["mrf"] == want_mrf,
+              f"K1 launched {launches['mrf']} times while training, not "
+              f"{want_mrf} ({n_decodes} eval-mode decodes)")
+        for state in (trainer.state, resumed.state):
+            for name, net, opt in state.nets():
+                check(all(p.dtype == torch.float32
+                          for p in net.parameters())
+                      and all(v.dtype == torch.float32
+                              for per in opt.state.values()
+                              for v in per.values() if v.is_floating_point()),
+                      f"{name}: parameters or optimiser state not f32")
 
         with open(os.path.join(model_dir, "metrics.jsonl")) as f:
             metrics = [json.loads(line) for line in f]
-        check([m["step"] for m in metrics] == list(range(1, n_steps + 1)),
-              "metrics.jsonl steps")
+        train_metrics = [m for m in metrics if "loss/g_total" in m]
+        check([m["step"] for m in train_metrics]
+              == list(range(1, n_steps + 1)), "metrics.jsonl steps")
         for m in metrics:
             for key, value in m.items():
                 check(bool(np.isfinite(value)), f"step {m['step']} {key}")
         for key in ("loss/g_total", "loss/disc"):
-            values = [m[key] for m in metrics]
+            values = [m[key] for m in train_metrics]
             check(len(set(values)) == len(values), f"{key} repeats: {values}")
         for k, names in watched.items():
             params = dict(nets[k].named_parameters())
@@ -1215,6 +1291,8 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
         check(not torch.equal(resumed_params[first_g],
                               dict(nets["G"].named_parameters())[first_g]),
               "the resumed trainer's step changed nothing")
+        media_result = (check_media(trainer, summary, decoded, n_first)
+                        if media else None)
 
         # ---- the first step's own alignment: K2 against the plain version
         neg_cent, mask = record["mas_inputs"]
@@ -1224,7 +1302,8 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
 
         # ---- one more step, split by phase with CUDA events ----
         names = ("start", "g_forward", "d_update") + (
-            ("dur_d_update",) if "DUR" in watched else ()) + ("g_update",)
+            ("dur_d_update",) if "DUR" in watched else ()) + (
+            ("wd_update",) if "WD" in watched else ()) + ("g_update",)
         events = {n: torch.cuda.Event(enable_timing=True) for n in names}
         record["mas_events"] = [torch.cuda.Event(enable_timing=True)
                                 for _ in range(2)]
@@ -1232,7 +1311,8 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
         with observed_training(record):
             events["start"].record()
             train_step(resumed.cfg, resumed.state, batch, resumed.generator,
-                       mark=lambda name: events[name].record())
+                       mark=lambda name: events[name].record(),
+                       slm_feature_fn=resumed.slm_feature_fn)
         torch.cuda.synchronize()
         split = {f"{b}_ms": events[a].elapsed_time(events[b])
                  for a, b in zip(names[:-1], names[1:])}
@@ -1247,9 +1327,10 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
     step_ms = [1e3 * (b - a) for a, b in zip([t0] + ends[:n_first - 1],
                                              ends[:n_first])]
     timed = step_ms[TRAIN_WARMUP_STEPS:]
-    return {
+    result = {
         "steps": n_steps, "batch": cfg.train.batch_size,
         "segment_size": cfg.train.segment_size,
+        "bf16": cfg.train.bf16_run or cfg.train.fp16_run,
         "frame_buckets": record["buckets"][:n_steps],
         "T_text_first_step": neg_cent.shape[2],
         "warmup_step_ms": step_ms[:TRAIN_WARMUP_STEPS],
@@ -1258,16 +1339,68 @@ def train_main_path(cfg, watched: dict, timed_steps: int) -> tuple:
         "steps_per_s": len(timed) / (sum(timed) / 1e3),
         "save_s": t_first - ends[n_first - 1],
         "peak_memory_bytes": peak_bytes,
-        "loss_g_total": [m["loss/g_total"] for m in metrics],
-        "loss_disc": [m["loss/disc"] for m in metrics],
+        "loss_g_total": [m["loss/g_total"] for m in train_metrics],
+        "loss_disc": [m["loss/disc"] for m in train_metrics],
         "split_of_one_step": split,
-    }, launches, metrics, (neg_cent, mask)
+    }
+    if media:
+        result["eval_s"] = t_eval - t_first
+        result["media"] = media_result
+        result["val_batches"] = n_val
+    return result, launches, train_metrics, (neg_cent, mask)
+
+
+def record_decodes(net_g) -> list:
+    """Shadow `net_g.decode` with a wrapper that keeps each call's (z, g,
+    audio); `del net_g.decode` restores the method."""
+    calls = []
+    real = net_g.decode
+
+    def decode(z, g=None, sid=None, precision="f32"):
+        out = real(z, g, sid, precision)
+        calls.append((z, g, out))
+        return out
+
+    net_g.decode = decode
+    return calls
+
+
+@torch.no_grad()
+def check_media(trainer, summary, decoded, step: int) -> dict:
+    """The eval media of `trainer.evaluate`: the three tags at `step`, and
+    `gen/audio` (decoded through K1 after the optimiser's steps) against a
+    decode of the same latent through the plain MRF version from the live
+    weight_g / weight_v (the decoder in train() mode), within K1's f32
+    tolerance 1e-4 * max(1, max|plain|): a folded buffer or a packed K1
+    copy left stale by the steps would differ."""
+    tags = ([tag for st, tag, _, _ in summary.audio_clips if st == step]
+            + [tag for st, tag, _ in summary.images if st == step])
+    check(sorted(tags) == ["gen/alignment", "gen/audio", "gen/mel"],
+          f"eval media tags {tags}")
+    check({"val/mel_l1", "val/kl", "val/dur"} <= set(
+        summary.scalar_steps[step]), "eval scalars")
+    check(len(decoded) == 1, f"{len(decoded)} media decodes, not 1")
+    (z, g, audio), = decoded
+    (_, _, wav, _), = [c for c in summary.audio_clips if c[0] == step]
+    check(np.array_equal(wav, audio[0, :wav.size, 0].cpu().numpy()),
+          "gen/audio is not the decoder's output")
+    net_g = trainer.state.net_g
+    net_g.dec.train()  # the differentiable chain: mrf_stage_reference
+    want = net_g.decode(z, g)[0, :wav.size, 0]
+    net_g.dec.eval()
+    err = float((audio[0, :wav.size, 0] - want).abs().max())
+    bound = 1e-4 * max(1.0, float(want.abs().max()))
+    check(err <= bound, f"media audio {err:.3e} from the plain decode "
+                        f"(bound {bound:.3e})")
+    return {"samples": int(wav.size), "max_abs_err": err, "bound": bound,
+            "peak": float(np.abs(wav).max())}
 
 
 def phase_training(cfg):
-    """The training main path at v1's full width through `Trainer`."""
+    """The training main path at v1's full width through `Trainer`, with
+    one evaluate and its eval media (K1 in every eval-mode decode)."""
     result, launches, _, _ = train_main_path(cfg, WATCHED_PARAMS,
-                                             TRAIN_TIMED_STEPS)
+                                             TRAIN_TIMED_STEPS, media=True)
     return result, launches
 
 
@@ -1333,6 +1466,87 @@ def phase_vits2_training(card: str):
                                "mas_noise_scale":
                                    rec["train/mas_noise_scale"]}
     return result, launches["mas"] + hifigan["mas"], k2
+
+
+# the bf16 + WavLM discriminator run: VITS2's watched parameters and the
+# WavLM discriminator's
+VITS2_WD_WATCHED_PARAMS = {
+    **VITS2_WATCHED_PARAMS,
+    "WD": ("pre.weight_v", "convs.0.weight_g", "convs.2.weight_v",
+           "conv_post.weight_v"),
+}
+
+
+def write_wavlm(path: str, seed: int):
+    """A WavLM at the default geometry (hidden 768, 12 layers of 12 heads,
+    FFN 3072, seven convs of 512: microsoft/wavlm-base-plus's) with seeded
+    random weights, written as a local HuggingFace directory: `config.json`
+    and `pytorch_model.bin` under HF's state-dict names. Each layer has
+    torch's default init drawn from `seed`; the positional conv's v is
+    N(0, 1 / fan_in) with g = ||v|| per tap. Returns its config."""
+    from wetts_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+    wcfg = WavLMConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = WavLMModel(wcfg)
+        conv = model.encoder.pos_conv_embed.conv
+        with torch.no_grad():
+            v = conv.weight_v
+            v.copy_(torch.randn(v.shape) / (v[0].numel() ** 0.5))
+            conv.weight_g.copy_(v.square().sum((0, 1), keepdim=True).sqrt())
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(wcfg.to_hf(), f)
+    torch.save(model.state_dict(), os.path.join(path, "pytorch_model.bin"))
+    return wcfg
+
+
+def phase_bf16_wd_training(card: str, f32: dict):
+    """vits2_vocos_v1.json at full width with `train.bf16_run` and
+    `model.use_wd` set on top (no published config sets either), the
+    WavLM read by `Trainer._load_slm` from a seeded random WavLM at the
+    default geometry written to a temporary directory: `train_main_path`
+    (1 warm-up and 3 timed steps, a save, a resume and one more step, the
+    step split by phase with the WavLM discriminator's update), the MAS
+    noise scale against its schedule, the SLM losses every step, K2 on the
+    bf16 step's scores (f32) against its plain version and timed. `f32`:
+    the f32 run of the same config without the WavLM branch, from
+    `phase_vits2_training` in the same process, as the baseline. Returns
+    (the result, K2's launches, K2's row)."""
+    cfg = vits2_config(VITS2_CONFIG, N_PHONES)
+    cfg.train.bf16_run, cfg.model.use_wd = True, True
+    with tempfile.TemporaryDirectory(prefix="wetts_smoke_wavlm_") as root:
+        slm_dir = os.path.join(root, "wavlm")
+        wcfg = write_wavlm(slm_dir, SEED)
+        check((cfg.model.slm_hidden, cfg.model.slm_nlayers)
+              == (wcfg.hidden_size, wcfg.num_layers + 1),
+              "the config's SLM geometry against the WavLM's")
+        t0 = time.perf_counter()
+        result, launches, metrics, (neg_cent, mask) = train_main_path(
+            cfg, VITS2_WD_WATCHED_PARAMS, VITS2_TIMED_STEPS,
+            slm_model_dir=slm_dir)
+        result["phase_s"] = time.perf_counter() - t0
+    m = cfg.model
+    for rec in metrics:
+        want = max(m.mas_noise_scale_initial
+                   - m.noise_scale_delta * (rec["step"] - 1), 0.0)
+        check(abs(rec["train/mas_noise_scale"] - want) <= 1e-6 * want,
+              f"bf16 step {rec['step']}: MAS noise scale")
+        check({"loss/slm_disc", "loss/slm_feat", "loss/slm_gen",
+               "loss/dur_disc", "loss/dur_gen"} <= set(rec),
+              f"bf16 step {rec['step']}: no SLM or duration losses")
+    for key in ("loss/slm_disc", "loss/slm_feat", "loss/slm_gen"):
+        result[key.replace("/", "_")] = [r[key] for r in metrics]
+    k2 = mas_row(neg_cent, mask, max_sm_clock_hz(), "VITS2 bf16 scores")
+    print("K2 vits2 bf16 shape " + json.dumps(k2))
+    result["mas_device_ms"] = k2["device_ms"]
+    result["f32_without_wd"] = {
+        k: f32[k] for k in ("split_of_one_step", "step_ms_p50",
+                            "step_ms_min", "step_ms_max", "steps_per_s",
+                            "peak_memory_bytes")}
+    result["card"] = card
+    return result, launches["mas"], k2
 
 
 # the reference step's configs, their lengths in frames, and the groups of
@@ -1435,7 +1649,7 @@ def reference_step(name: str) -> dict:
 
     cfg_dict, frames, unheld = REFERENCE_CONFIGS[name]
     cfg = Config.from_dict(copy.deepcopy(cfg_dict))
-    nets = build_models(cfg)
+    nets = build_models(cfg)[:3]  # these configs have no WavLM branch
     for i, net in enumerate(nets):
         if net is not None:
             random_init_(net, SEED + i)
@@ -2616,6 +2830,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     vits2_training, vits2_mas_launches, k2_vits2 = phase_vits2_training(card)
     print("vits2_training " + json.dumps(vits2_training))
+    torch.cuda.empty_cache()
+    bf16_training, bf16_mas_launches, k2_bf16 = phase_bf16_wd_training(
+        card, vits2_training)
+    print("bf16_wd_training " + json.dumps(bf16_training))
     print("train_reference " + json.dumps(phase_train_reference()))
     v1_rows = [r for r in mas_rows
                if (r["B"], r["T_spec"], r["T_text"]) in MAS_V1_SHAPES]
@@ -2658,7 +2876,7 @@ def main() -> int:
         kernel("mrf_stage", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
                launches["mrf_stage"] + vits2["f32"]["mrf_stage"]
-               + served("f32", "mrf_stage"),
+               + served("f32", "mrf_stage") + train_launches["mrf"],
                rows, "operations", total(rows, "library_ms")),
         kernel("mrf_stage_bf16", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
@@ -2672,6 +2890,11 @@ def main() -> int:
         kernel("mas_vits2", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
                vits2_mas_launches, [k2_vits2],
                "bytes" if k2_vits2["bound_by"] == "bytes" else "operations"),
+        # K2 on the bf16 step's (f32) scores, its launches those of the
+        # bf16 + WavLM discriminator main path
+        kernel("mas_vits2_bf16", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
+               bf16_mas_launches, [k2_bf16],
+               "bytes" if k2_bf16["bound_by"] == "bytes" else "operations"),
         kernel("int8_conv", "int8_mrf_conv.cu", q8,
                launches_int8["int8_conv"] + vits2["int8"]["int8_conv"]
                + served("int8", "int8_conv"),

@@ -6,7 +6,10 @@ matrix chains; the port's synthesis (f32, bf16, int8) and training step
 on the GPU against the CPU; and K1 and the int8 stage at the streamed
 decoder's chunk shapes, and a streamed synthesis whose batched tail equals
 its per-chunk decode on the card at each precision; the Vocos decoder's
-iSTFT at any batch size; `cli.model.Model` on a bundle, GPU against CPU.
+iSTFT at any batch size; `cli.model.Model` on a bundle, GPU against CPU;
+a bf16 training step with the WavLM discriminator (K2 on f32 scores, f32
+master state, within 0.15 of the f32 step), and the eval media's decode
+after weight updates through K1 against the live weights' plain decode.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -302,10 +305,14 @@ def test_train_step_on_gpu_matches_cpu(cuda):
     """One training step on the GPU (K2 in the forward, the differentiable
     MRF route in the decoder) against the CPU, same seeded weights, draws
     fixed and dropout off: the alignment exactly equal, losses within rel
-    1e-3 (checked inside the smoke script's phase, which raises)."""
+    1e-3 (checked inside the smoke script's phase, which raises), for
+    VITS-base and the reduced VITS2 config."""
+    from chip_smoke import REFERENCE_CONFIGS
+
     result = phase_train_reference()
-    assert result["max_rel_err"] <= 1e-3
-    assert result["attn_frames"] == 24 + 21
+    for name, (_, frames, _) in REFERENCE_CONFIGS.items():
+        assert result[name]["max_rel_err_held"] <= 1e-3, name
+        assert result[name]["attn_frames"] == sum(frames), name
 
 
 # ---------------------------------------------------------------------------
@@ -915,3 +922,104 @@ def test_model_bundle_on_gpu_matches_cpu(cuda, tmp_path, precision):
     atol = 2e-4 if precision == "f32" else 3e-2
     assert np.abs(got - want).max() <= 2 * atol * 0.6 * 32767 / peak + 1
     assert np.corrcoef(got, want)[0, 1] > 0.99
+
+
+def test_bf16_wd_step_on_gpu(cuda):
+    """One bf16 step of the reduced VITS2 reference config with the WavLM
+    discriminator (a tiny random WavLM behind a resample) on the card: K2
+    once on f32 scores, every metric finite, parameters and AdamW state
+    f32, and `loss/disc` / `loss/mel` within 0.15 relative of the f32 step
+    from the same weights (tests/test_train_bf16.py's bounds)."""
+    import copy
+
+    from chip_smoke import REFERENCE_CONFIGS
+    from wetts_tpu_torch.models import synthesizer
+    from wetts_tpu_torch.models.wavlm import (
+        WavLMConfig,
+        WavLMModel,
+        make_slm_feature_fn,
+    )
+    from wetts_tpu_torch.train.state import GANTrainState
+    from wetts_tpu_torch.train.step import build_models, train_step
+
+    cfg_dict, frames, _ = REFERENCE_CONFIGS["vits2"]
+    wcfg = WavLMConfig.tiny()
+    gen = torch.Generator().manual_seed(0)
+    batch = {"phone_ids": torch.randint(1, 24, (2, 9), generator=gen),
+             "text_lengths": torch.tensor([9, 7]),
+             "wav": torch.randn(2, frames[0] * 16, generator=gen) * 0.3,
+             "spec_lengths": torch.tensor(frames),
+             "sid": torch.tensor([0, 1])}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    wavlm = random_init_(WavLMModel(wcfg), 1).to(cuda)
+    fn = make_slm_feature_fn(wavlm, 8000, 16000)
+    seen = []
+    real = synthesizer.maximum_path
+
+    def mas(neg_cent, mask):
+        seen.append(neg_cent.dtype)
+        return real(neg_cent, mask)
+
+    metrics = {}
+    synthesizer.maximum_path = mas
+    try:
+        for bf16 in (False, True):
+            d = copy.deepcopy(cfg_dict)
+            d["train"]["bf16_run"] = bf16
+            d["model"].update(use_wd=True, slm_hidden=wcfg.hidden_size,
+                              slm_nlayers=wcfg.num_layers + 1,
+                              slm_initial_channel=8)
+            cfg = Config.from_dict(d)
+            nets = [random_init_(n, i).to(cuda)
+                    for i, n in enumerate(build_models(cfg))]
+            state = GANTrainState.create(cfg, *nets)
+            before = maximum_path.launches
+            metrics[bf16] = {k: float(v) for k, v in train_step(
+                cfg, state, batch, torch.Generator(cuda).manual_seed(0),
+                slm_feature_fn=fn).items()}
+            assert maximum_path.launches - before == 1
+    finally:
+        synthesizer.maximum_path = real
+    assert seen == [torch.float32, torch.float32]
+    assert "loss/slm_disc" in metrics[True]
+    assert all(np.isfinite(v) for v in metrics[True].values())
+    for k in ("loss/disc", "loss/mel"):
+        assert abs(metrics[True][k] - metrics[False][k]) < 0.15 * abs(
+            metrics[False][k]), k
+    for _, net, opt in state.nets():
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        assert all(v.dtype == torch.float32 for s in opt.state.values()
+                   for v in s.values() if v.is_floating_point())
+
+
+def test_media_decode_after_steps_matches_plain(cuda):
+    """The eval media's decode after optimiser steps: `eval()` refolds the
+    weight-norm buffers and drops K1's packed copies, so the decoder
+    through K1 (72 launches for v1; here 2 stages x 2 branches x 6 convs)
+    equals the differentiable decode from the live weight_g / weight_v
+    within K1's f32 tolerance, 1e-4 * max(1, max|plain|)."""
+    cfg = Config.from_dict({
+        "train": {"segment_size": 256},
+        "data": {"filter_length": 64, "hop_length": 16, "win_length": 64},
+        "model": {"inter_channels": 32, "hidden_channels": 32,
+                  "filter_channels": 64, "n_layers": 2,
+                  "resblock_kernel_sizes": [3, 5],
+                  "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5]],
+                  "upsample_rates": [4, 4], "upsample_initial_channel": 64,
+                  "upsample_kernel_sizes": [8, 8], "gin_channels": 16},
+        "num_phones": 24, "num_speakers": 3})
+    model = random_init_(Synthesizer(cfg), 0).to(cuda).eval()
+    z = torch.randn(2, 80, 32, device=cuda)
+    sid = torch.tensor([0, 2], device=cuda)
+    with torch.no_grad():
+        model.decode(z, sid=sid)  # packs K1's weights
+        model.train()
+        for name, p in model.dec.named_parameters():  # an optimiser's move
+            p.add_(1e-2 * torch.randn_like(p))
+        want = model.decode(z, sid=sid)  # train(): the live weights
+        model.eval()
+        before = mrf_stage.launches
+        got = model.decode(z, sid=sid)
+    assert mrf_stage.launches - before == 2 * 2 * 6
+    assert (got - want).abs().max().item() <= 1e-4 * max(
+        1.0, want.abs().max().item())

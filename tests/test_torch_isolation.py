@@ -1,10 +1,14 @@
 """The port stands alone: `wetts_tpu_torch` and `chip_smoke` import neither
 jax nor anything of `wetts_tpu`, and the entry points refuse to run without
-a GPU unless asked for the CPU.
+a GPU unless asked for the CPU. No module imports `transformers`,
+`tensorboard`, `tensorboardX`, `safetensors` or `matplotlib` when it is
+imported: the card's machine has none of them, and the port reaches them
+only inside the functions that use them, with their fallbacks.
 
-Checked in a fresh interpreter with `sys.modules["jax"] = None` (so any
-`import jax` fails) and a meta-path finder that refuses `wetts_tpu` and
-`wetts_tpu.*` by exact name (`wetts_tpu_torch` shares the prefix).
+Checked in a fresh interpreter with `sys.modules[name] = None` for each of
+those packages (so any import of one fails) and a meta-path finder that
+refuses `wetts_tpu` and `wetts_tpu.*` by exact name (`wetts_tpu_torch`
+shares the prefix).
 """
 
 import os
@@ -22,6 +26,10 @@ PROBE = textwrap.dedent("""
 
     sys.modules["jax"] = None
     sys.modules["flax"] = None
+    # absent where the port runs on the card: imported only inside functions
+    for absent in ("transformers", "tensorboard", "tensorboardX",
+                   "safetensors", "matplotlib"):
+        sys.modules[absent] = None
 
     def refused(name):
         return name == "wetts_tpu" or name.startswith("wetts_tpu.")
@@ -53,13 +61,16 @@ PROBE = textwrap.dedent("""
         "frontend.scorer", "models.vocos", "bin.voice_convert",
         "cli.model", "cli.tts", "cli.hub", "bin.export_bundle",
         "bin.eval_mcd", "serving.embed", "text.native",
-        "utils.onnx_import"]
+        "utils.onnx_import", "ops.resample", "models.wavlm",
+        "utils.summary"]
     missing = [m for m in expected
                if "wetts_tpu_torch." + m not in sys.modules]
     assert not missing, missing
 
     leaked = [m for m in sys.modules if refused(m)
-              or (m.split(".")[0] in ("jax", "jaxlib", "flax")
+              or (m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers",
+                                      "tensorboard", "tensorboardX",
+                                      "safetensors", "matplotlib")
                   and sys.modules[m] is not None)]
     assert not leaked, leaked
 

@@ -177,8 +177,8 @@ def trained():
     """(cfg, state after one step from seeded weights, metrics, the
     generator's parameters before the step)."""
     cfg = Config.from_dict(small_cfg_dict())
-    net_g, net_d, net_dur_d = build_models(cfg)
-    assert net_dur_d is None
+    net_g, net_d, net_dur_d, net_wd = build_models(cfg)
+    assert net_dur_d is None and net_wd is None
     init_weights_(net_g, net_d, torch.Generator().manual_seed(0))
     before = {k: v.clone() for k, v in net_g.named_parameters()}
     before_d = {k: v.clone() for k, v in net_d.named_parameters()}
@@ -271,10 +271,25 @@ def test_epoch_lr_and_optimizer_settings(trained):
 @pytest.mark.parametrize("section,flag", [
     ("train", "fp16_run"), ("train", "bf16_run"), ("model", "use_wd")])
 def test_unported_training_options_raise(section, flag):
+    """These three options raised while the port trained in f32 only and
+    without the WavLM discriminator; now none raises and each builds what
+    it asks for: bf16 compute (`fp16_run` the same toggle as `bf16_run`,
+    as in the JAX config) or the WavLM discriminator at the config's
+    geometry (slm_hidden 768 x slm_nlayers 13 features in, 64 channels)."""
+    from wetts_tpu_torch.models.discriminators import WavLMDiscriminator
+    from wetts_tpu_torch.train.step import half_precision
+
     cfg = small_cfg_dict()
     cfg[section][flag] = True
-    with pytest.raises(NotImplementedError):
-        build_models(Config.from_dict(cfg))
+    cfg = Config.from_dict(cfg)
+    _, _, net_dur_d, net_wd = build_models(cfg)
+    assert net_dur_d is None
+    assert half_precision(cfg) == (section == "train")
+    if flag == "use_wd":
+        assert type(net_wd) is WavLMDiscriminator
+        assert net_wd.pre.weight_v.shape == (64, 768 * 13, 1)
+    else:
+        assert net_wd is None
 
 
 @pytest.mark.parametrize("flag", ["use_mrd_disc", "use_duration_discriminator",
@@ -288,7 +303,7 @@ def test_vits2_training_options_build(flag):
 
     cfg = small_cfg_dict()
     cfg["model"][flag] = True
-    net_g, net_d, net_dur_d = build_models(Config.from_dict(cfg))
+    net_g, net_d, net_dur_d, _ = build_models(Config.from_dict(cfg))
     assert type(net_d) is (
         discriminators.MultiPeriodMultiResolutionDiscriminator
         if flag == "use_mrd_disc" else discriminators.MultiPeriodDiscriminator)
@@ -299,7 +314,7 @@ def test_vits2_training_options_build(flag):
     assert type(net_dur_d) is discriminators.DurationDiscriminatorV1
     assert net_dur_d.conv_1.weight.shape == (32, 32, 3)  # filter = hidden
     cfg["model"]["duration_discriminator_type"] = "dur_disc_2"
-    _, _, net_dur_d = build_models(Config.from_dict(cfg))
+    _, _, net_dur_d, _ = build_models(Config.from_dict(cfg))
     assert type(net_dur_d) is discriminators.DurationDiscriminatorV2
 
 
@@ -307,7 +322,7 @@ def test_init_weights_follow_the_reference(trained):
     """Identity flows (zero `post` / spline `proj`), g = ||v||, nothing else
     left at zero."""
     cfg = Config.from_dict(small_cfg_dict())
-    net_g, net_d, _ = build_models(cfg)
+    net_g, net_d, _, _ = build_models(cfg)
     init_weights_(net_g, net_d, torch.Generator().manual_seed(1))
     sd = net_g.state_dict()
     assert not sd["flow.flows.0.post.weight"].any()
@@ -418,7 +433,7 @@ def test_trainer_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
 def test_checkpoints_keep_the_newest(tmp_path):
     cfg = tiny_cfg()
     cfg.num_phones = 8
-    net_g, net_d, _ = build_models(cfg)
+    net_g, net_d, _, _ = build_models(cfg)
     state = GANTrainState.create(cfg, net_g, net_d)
     model_dir = str(tmp_path / "exp")
     assert ckpt.latest_step(model_dir) is None

@@ -376,7 +376,7 @@ def test_vits2_two_step_update_parity(monkeypatch):
     cfg = parity_vits2_cfg()
     jcfg = JaxConfig.from_dict(copy.deepcopy(cfg))
     pcfg = Config.from_dict(copy.deepcopy(cfg))
-    nets = build_models(pcfg)
+    nets = build_models(pcfg)[:3]  # no WavLM discriminator
     init_weights_(nets[0], nets[1], torch.Generator().manual_seed(0),
                   nets[2])
     assert type(nets[1]) is (
@@ -482,7 +482,7 @@ def trained_vits2(request):
     """(name, cfg, state after one step from seeded weights, metrics, every
     parameter before the step, per network)."""
     cfg = Config.from_dict(published_tiny(request.param))
-    net_g, net_d, net_dur_d = build_models(cfg)
+    net_g, net_d, net_dur_d, _ = build_models(cfg)
     init_weights_(net_g, net_d, torch.Generator().manual_seed(0), net_dur_d)
     nets = {"G": net_g, "D": net_d, "DUR": net_dur_d}
     before = {k: {n: p.detach().clone() for n, p in net.named_parameters()}
@@ -539,7 +539,7 @@ def test_mas_noise_scale_schedule():
     assert [mas_noise_scale(cfg, s) for s in (0, 1, 2, 3, 10)] == [
         max(0.01 - 0.004 * s, 0.0) for s in (0, 1, 2, 3, 10)]
     assert mas_noise_scale(cfg, 3) == 0.0
-    net_g, net_d, net_dur_d = build_models(cfg)
+    net_g, net_d, net_dur_d, _ = build_models(cfg)
     state = GANTrainState.create(cfg, net_g, net_d, net_dur_d)
     state.step = 2
     metrics = train_step(cfg, state,

@@ -16,6 +16,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from wetts_tpu.config import Config as JaxConfig
@@ -211,3 +212,15 @@ def train_batch(cfg_dict, seed: int = 3):
     yl = np.array([frames, frames - 3])
     sid = np.array([0, 1])
     return x, xl, wav, yl, sid
+
+
+@pytest.fixture(autouse=True)
+def drop_checkpoints(tmp_path):
+    """Delete a test's trainer checkpoints when it ends: every `Trainer`
+    saves the full-width multi-period discriminator with its AdamW moments
+    (some 0.5 GB a file, whatever the config's size), and pytest keeps the
+    temporary directories of its last runs. Import it into a test module
+    to use it there."""
+    yield
+    for path in tmp_path.rglob("ckpt_*.pt"):
+        path.unlink()

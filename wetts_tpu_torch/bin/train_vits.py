@@ -5,9 +5,13 @@ speaker tables.
 Usage:
     python -m wetts_tpu_torch.bin.train_vits -c config.json -m exp/v1 \
         --train_data data/train.txt --val_data data/val.txt \
-        --phone_table data/phones.txt --speaker_table data/speaker.txt
+        --phone_table data/phones.txt --speaker_table data/speaker.txt \
+        [--slm_model wavlm_dir]
 
-Runs on the GPU and raises without one; `--device cpu` asks for the CPU.
+`--slm_model` names a local HuggingFace WavLM directory (`config.json` and
+`pytorch_model.bin` or `model.safetensors`) for the WavLM discriminator of
+a config with `model.use_wd`; bf16 compute is the config's
+`train.bf16_run` (or `fp16_run`). Runs on the GPU and raises without one; `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ def get_args(argv=None):
     p.add_argument("--phone_table", required=True)
     p.add_argument("--speaker_table", default=None)
     p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--slm_model", default=None,
+                   help="local HF WavLM dir for the SLM discriminator")
     p.add_argument("--num_workers", type=int, default=0,
                    help="accepted for reference-CLI compatibility")
     p.add_argument("--device", default=None,
@@ -46,7 +52,7 @@ def main(argv=None):
                     os.path.join(args.model_dir, "config.json"))
     trainer = Trainer(cfg, args.model_dir, args.train_data,
                       args.phone_table, args.speaker_table, args.val_data,
-                      device=args.device)
+                      device=args.device, slm_model_dir=args.slm_model)
     trainer.train(max_steps=args.max_steps)
 
 

@@ -11,18 +11,21 @@ reference wetts/vits/model/discriminators.py):
 - MultiPeriodMultiResolutionDiscriminator (:256-283) = R(2048, 1024, 512)
   + P(2, 3, 5, 7, 11),
 - DurationDiscriminatorV1 / V2 (:287-449): VITS2's discriminator of
-  log-durations given the (detached) text hidden states.
+  log-durations given the (detached) text hidden states,
+- WavLMDiscriminator (:452-498): a 1D conv stack over the stacked hidden
+  states of a frozen WavLM (the SLM discriminator).
 
 Waveforms are [B, T, 1], as in the JAX package; every waveform
 sub-discriminator returns (flattened logits [B, N], feature maps). Feature
 maps come back channel-last ([B, T', C] and [B, H, W, C], H the frames and
 W the period or the frequency bins) so they compare one to one with the JAX
-package's. The duration discriminators take and return the JAX layout too:
-hidden states [B, T, C], masks and durations [B, T, 1], probabilities
-[B, T, 1]. Parameters keep the reference's state_dict names
+package's. The duration and WavLM discriminators take and return the JAX
+layout too: hidden states [B, T, C], masks and durations [B, T, 1],
+probabilities [B, T, 1]; WavLM features [B, T, C], logits [B, T].
+Parameters keep the reference's state_dict names
 (`discriminators.{i}.convs.{j}`, `discriminators.{i}.band_convs.{b}.{j}`,
 `conv_post`; `output_layer.0` for the duration discriminators' linear
-layer). The WavLM discriminator is a later slice.
+layer; `pre`, `convs.{0,1,2}`, `conv_post` for the WavLM discriminator).
 """
 
 from __future__ import annotations
@@ -246,3 +249,28 @@ class DurationDiscriminatorV2(DurationDiscriminatorV1):
     conv."""
 
     normed = True
+
+
+class WavLMDiscriminator(nn.Module):
+    """Discriminator over stacked frozen-WavLM hidden states: a weight-normed
+    1x1 conv to `initial_channel`, three kernel-5 convs (x2, x4, x4
+    channels) each followed by leaky ReLU, a kernel-3 conv to one
+    channel."""
+
+    def __init__(self, slm_hidden: int = 768, slm_layers: int = 13,
+                 initial_channel: int = 64):
+        super().__init__()
+        ic = initial_channel
+        self.pre = Conv1d(slm_hidden * slm_layers, ic, 1, weight_norm=True)
+        self.convs = nn.ModuleList([
+            Conv1d(c_in, c_out, 5, padding=2, weight_norm=True)
+            for c_in, c_out in ((ic, ic * 2), (ic * 2, ic * 4),
+                                (ic * 4, ic * 4))])
+        self.conv_post = Conv1d(ic * 4, 1, 3, padding=1, weight_norm=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, slm_hidden * slm_layers] -> logits [B, T]."""
+        x = self.pre(_bct(x))
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+        return self.conv_post(x).flatten(1)

@@ -165,15 +165,18 @@ class Synthesizer(nn.Module):
                                             generator=generator)
         z_p = self.flow(z, y_mask, g=g_in, generator=generator)
 
-        # MAS, no gradients (reference :171-194); [B, T_spec, T_text]
-        with torch.no_grad():
-            s_p_sq_r = torch.exp(-2.0 * logs_p)  # [B, C, T_text]
-            zp_t = _bct(z_p)  # [B, T_spec, C]
-            neg_cent1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p,
+        # MAS, no gradients (reference :171-194); [B, T_spec, T_text]. The
+        # scores are f32 under autocast too, as the JAX bf16 step's
+        # (preferred_element_type=f32): K2 takes them as they are
+        with torch.no_grad(), torch.autocast(z_p.device.type, enabled=False):
+            z_p_, m_p_, logs_p_ = z_p.float(), m_p.float(), logs_p.float()
+            s_p_sq_r = torch.exp(-2.0 * logs_p_)  # [B, C, T_text]
+            zp_t = _bct(z_p_)  # [B, T_spec, C]
+            neg_cent1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p_,
                                   dim=1)[:, None, :]
             neg_cent2 = torch.matmul(-0.5 * zp_t ** 2, s_p_sq_r)
-            neg_cent3 = torch.matmul(zp_t, m_p * s_p_sq_r)
-            neg_cent4 = torch.sum(-0.5 * m_p ** 2 * s_p_sq_r,
+            neg_cent3 = torch.matmul(zp_t, m_p_ * s_p_sq_r)
+            neg_cent4 = torch.sum(-0.5 * m_p_ ** 2 * s_p_sq_r,
                                   dim=1)[:, None, :]
             neg_cent = neg_cent1 + neg_cent2 + neg_cent3 + neg_cent4
             if self.use_noise_scaled_mas:

@@ -19,7 +19,10 @@ the function. Here the transforms are `torch.stft` and `torch.istft` (cuFFT
 on the GPU), which are differentiable: the mel loss backpropagates through
 them into the decoder.
 Waveforms are [B, T]; spectrograms are [B, frames, bins], as in the JAX
-package.
+package. Every function here computes in f32 with autocast off, whatever
+the type of its input (`_in_f32`): `torch.stft` / `torch.istft` take no
+bf16 on CUDA, and the JAX bf16 training step computes its spectrograms and
+the mel loss in f32.
 """
 
 from __future__ import annotations
@@ -30,6 +33,17 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def _in_f32(fn):
+    """fn with its tensor arguments cast to f32 and autocast off."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        args = [a.float() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with torch.autocast(args[0].device.type, enabled=False):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,6 +111,7 @@ def _on_device(kind: str, args: tuple, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(make(*args)).to(device)
 
 
+@_in_f32
 def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
                 win_length: int, eps: float = 1e-6) -> torch.Tensor:
     """Linear-magnitude spectrogram, [B, T] -> [B, T // hop, n_bins] for T a
@@ -112,6 +127,7 @@ def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
     return mag.transpose(1, 2)
 
 
+@_in_f32
 def complex_spectrogram(y: torch.Tensor, n_fft: int,
                         hop_length: int) -> torch.Tensor:
     """The multi-resolution discriminator's input (torchaudio
@@ -133,6 +149,7 @@ def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5,
     return torch.log(torch.clamp_min(x, clip_val) * c)
 
 
+@_in_f32
 def spec_to_mel(spec: torch.Tensor, n_fft: int, n_mels: int,
                 sample_rate: int, fmin: float = 0.0,
                 fmax: Optional[float] = None) -> torch.Tensor:
@@ -142,6 +159,7 @@ def spec_to_mel(spec: torch.Tensor, n_fft: int, n_mels: int,
     return dynamic_range_compression(spec @ fb)
 
 
+@_in_f32
 def mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int,
                     sample_rate: int, hop_length: int, win_length: int,
                     fmin: float = 0.0, fmax: Optional[float] = None
@@ -151,6 +169,7 @@ def mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int,
                        n_mels, sample_rate, fmin, fmax)
 
 
+@_in_f32
 def istft(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,
           hop_length: int, win_length: int) -> torch.Tensor:
     """Inverse STFT, center=True: [B, F, n_bins] real and imaginary parts

@@ -1,6 +1,6 @@
 """Train state: the generator, the discriminator, VITS2's duration
-discriminator where the config has one, their optimisers and the step count
-(port of wetts_tpu/train/state.py).
+discriminator and the WavLM (SLM) discriminator where the run has them,
+their optimisers and the step count (port of wetts_tpu/train/state.py).
 
 The reference trains each network with its own AdamW (lr 2e-4, betas
 (0.8, 0.99), eps 1e-9, torch's default weight decay 0.01) and decays the
@@ -29,9 +29,11 @@ def make_optimizer(cfg: Config, module: nn.Module) -> torch.optim.AdamW:
 
 @dataclass
 class GANTrainState:
-    """G, D and the duration discriminator (each a module with its
-    optimiser; the last two None without `use_duration_discriminator`) and
-    the number of steps taken."""
+    """G, D, the duration discriminator and the WavLM discriminator (each a
+    module with its optimiser; a module and its optimiser are None where
+    the run has no such network) and the number of steps taken. The
+    parameters and the optimiser state are f32 whatever the compute type
+    (bf16 runs under autocast)."""
 
     net_g: nn.Module
     opt_g: torch.optim.Optimizer
@@ -40,19 +42,32 @@ class GANTrainState:
     step: int = 0
     net_dur_d: Optional[nn.Module] = None
     opt_dur_d: Optional[torch.optim.Optimizer] = None
+    net_wd: Optional[nn.Module] = None
+    opt_wd: Optional[torch.optim.Optimizer] = None
+
+    # (net, optimiser) attribute pairs, in the order of `nets()`
+    NAMES = (("net_g", "opt_g"), ("net_d", "opt_d"),
+             ("net_dur_d", "opt_dur_d"), ("net_wd", "opt_wd"))
 
     @classmethod
     def create(cls, cfg: Config, net_g: nn.Module, net_d: nn.Module,
-               net_dur_d: Optional[nn.Module] = None) -> "GANTrainState":
-        return cls(net_g, make_optimizer(cfg, net_g),
-                   net_d, make_optimizer(cfg, net_d), net_dur_d=net_dur_d,
-                   opt_dur_d=(None if net_dur_d is None
-                              else make_optimizer(cfg, net_dur_d)))
+               net_dur_d: Optional[nn.Module] = None,
+               net_wd: Optional[nn.Module] = None) -> "GANTrainState":
+        def opt(net):
+            return None if net is None else make_optimizer(cfg, net)
+
+        return cls(net_g, opt(net_g), net_d, opt(net_d),
+                   net_dur_d=net_dur_d, opt_dur_d=opt(net_dur_d),
+                   net_wd=net_wd, opt_wd=opt(net_wd))
+
+    def nets(self):
+        """(name, net, optimiser) of every network the state holds."""
+        for net, opt in self.NAMES:
+            if getattr(self, net) is not None:
+                yield net, getattr(self, net), getattr(self, opt)
 
     def set_learning_rate(self, lr: float) -> None:
-        for opt in (self.opt_g, self.opt_d, self.opt_dur_d):
-            if opt is None:
-                continue
+        for _, _, opt in self.nets():
             for group in opt.param_groups:
                 group["lr"] = lr
 

@@ -5,25 +5,39 @@ Reproduces the reference's per-batch update (wetts/vits/train.py:366-507):
    the scale max(initial - delta * step, 0) of the step count before the
    update, :375-380); its detached outputs feed
 2. the discriminator update on (y_slice, y_hat.detach()), then, where the
-   config has one,
+   run has them,
 3. the duration discriminator's update on the detached (x_hidden, x_mask,
-   logw_, logw); then
-4. the generator update, whose adversarial terms see the *updated*
+   logw_, logw), and
+4. the WavLM (SLM) discriminator's update on the frozen WavLM's features of
+   the real and the generated slice, gradients stopped (:467-476); then
+5. the generator update, whose adversarial terms see the *updated*
    discriminators (the reference steps optim_d before the G pass), with
    loss = gen + fm + c_mel * L1(mel) + sum(l_length) + c_kl * KL
    (+ the duration discriminator's generator term, which reaches only the
-   stochastic duration predictor's own parameters through logw).
+   stochastic duration predictor's own parameters through logw; + the SLM
+   feature loss mean|f_real - f_fake| and the WavLM discriminator's
+   generator term, :496-500).
 
 The JAX step runs the generator forward twice with identical rngs, once
 without gradients for the D updates and once under value_and_grad; one
-forward whose output is detached for D is the same computation. Linear and
-mel spectrograms are computed on the device inside the step, as in the JAX
-package. f32 only so far: `fp16_run` / `bf16_run` raise, and so does the
-WavLM discriminator (`use_wd`).
+forward whose output is detached for D is the same computation, and so is
+one WavLM pass over the generated slice. Linear and mel spectrograms are
+computed on the device inside the step, as in the JAX package.
+
+`train.bf16_run` (or `fp16_run`, which the JAX config maps to the same
+toggle) runs every network's forward under `torch.autocast(dtype=bfloat16)`
+in place of the JAX package's `make_half_fns`: master parameters and AdamW
+state stay f32, gradients reach them in f32, and no loss scaling is needed
+(bf16 has f32's exponent). What the JAX bf16 step computes in f32 stays
+f32: the spectrograms (`ops/spectral.py`), MAS's scores
+(`Synthesizer.forward`), the losses, and the frozen WavLM with its
+resample. Each phase enters autocast on its own, so that no bf16 copy of a
+weight cached by autocast outlives an optimiser step.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -35,6 +49,7 @@ from wetts_tpu_torch.models.discriminators import (
     DurationDiscriminatorV2,
     MultiPeriodDiscriminator,
     MultiPeriodMultiResolutionDiscriminator,
+    WavLMDiscriminator,
 )
 from wetts_tpu_torch.models.duration import ConvFlow
 from wetts_tpu_torch.models.flows import AffineCoupling
@@ -58,18 +73,14 @@ Batch = Dict[str, torch.Tensor]
 
 
 def build_models(cfg: Config) -> Tuple[Synthesizer, nn.Module,
+                                       Optional[nn.Module],
                                        Optional[nn.Module]]:
     """The generator, the discriminator (multi-period, or multi-period
-    multi-resolution under `use_mrd_disc`) and the duration discriminator
-    (None without `use_duration_discriminator`) of a config (reference
-    train.py:82-211). Raises for what the port does not train yet."""
-    m, t = cfg.model, cfg.train
-    if t.fp16_run or t.bf16_run:
-        raise NotImplementedError("the port trains in f32 only so far "
-                                  "(fp16_run / bf16_run)")
-    if m.use_wd:
-        raise NotImplementedError("the port does not train with the WavLM "
-                                  "discriminator yet (use_wd)")
+    multi-resolution under `use_mrd_disc`), the duration discriminator
+    (None without `use_duration_discriminator`) and the WavLM
+    discriminator (None without `use_wd`) of a config (reference
+    train.py:82-211)."""
+    m = cfg.model
     net_d = (MultiPeriodMultiResolutionDiscriminator() if m.use_mrd_disc
              else MultiPeriodDiscriminator())
     net_dur_d = None
@@ -79,13 +90,17 @@ def build_models(cfg: Config) -> Tuple[Synthesizer, nn.Module,
                else DurationDiscriminatorV2)
         net_dur_d = cls(m.hidden_channels, m.hidden_channels, 3, 0.1,
                         gin_channels=m.gin_channels)
-    return Synthesizer(cfg), net_d, net_dur_d
+    net_wd = (WavLMDiscriminator(m.slm_hidden, m.slm_nlayers,
+                                 m.slm_initial_channel) if m.use_wd
+              else None)
+    return Synthesizer(cfg), net_d, net_dur_d, net_wd
 
 
 @torch.no_grad()
 def init_weights_(net_g: Synthesizer, net_d: nn.Module,
                   generator: Optional[torch.Generator] = None,
-                  net_dur_d: Optional[nn.Module] = None) -> None:
+                  net_dur_d: Optional[nn.Module] = None,
+                  net_wd: Optional[nn.Module] = None) -> None:
     """Initial weights at the reference's distributions, drawn from
     `generator` (a CPU generator; None is torch's global one): conv, dense
     and linear tensors U(-1/sqrt(fan_in), +) (torch's default;
@@ -95,7 +110,8 @@ def init_weights_(net_g: Synthesizer, net_d: nn.Module,
     ElementwiseAffine stay at the identity, and the flow's `post` and the
     spline `proj` convs at zero (identity flows), as the reference
     initialises them."""
-    nets = [net for net in (net_g, net_d, net_dur_d) if net is not None]
+    nets = [net for net in (net_g, net_d, net_dur_d, net_wd)
+            if net is not None]
     for net in nets:
         for name, module in net.named_modules():
             if not isinstance(module, (WeightNormed, nn.Linear)):
@@ -198,26 +214,45 @@ def _global_norm(params) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def half_precision(cfg: Config) -> bool:
+    """Whether the step computes in bf16 (`bf16_run`, or `fp16_run`, which
+    the JAX config maps to the same toggle)."""
+    return cfg.train.bf16_run or cfg.train.fp16_run
+
+
 def train_step(cfg: Config, state: GANTrainState, batch: Batch,
                generator: Optional[torch.Generator] = None,
-               mark: Optional[Callable[[str], None]] = None
+               mark: Optional[Callable[[str], None]] = None,
+               slm_feature_fn: Optional[Callable] = None
                ) -> Dict[str, torch.Tensor]:
     """One D-then-G update in place on `state`; returns the metrics as
-    0-d tensors on the device (nothing here synchronises with the host).
+    0-d f32 tensors on the device (nothing here synchronises with the
+    host).
 
     batch: phone_ids [B, T_text], text_lengths [B], wav [B, T_spec * hop],
     spec_lengths [B], sid [B], all on the models' device.
     mark: called with "g_forward", "d_update", "dur_d_update" (where the
-    state has a duration discriminator) and "g_update" as each phase has
-    been enqueued, for a caller that times the phases.
+    state has a duration discriminator), "wd_update" (where the WavLM
+    branch runs) and "g_update" as each phase has been enqueued, for a
+    caller that times the phases.
+    slm_feature_fn: the frozen WavLM's features of a waveform
+    (`models/wavlm.py:make_slm_feature_fn`); the WavLM discriminator's
+    branch runs where the state has `net_wd` and this is given, as in the
+    JAX step.
     """
     d, t = cfg.data, cfg.train
-    net_g, net_d, net_dur_d = state.net_g, state.net_d, state.net_dur_d
-    for net in (net_g, net_d, net_dur_d):
-        if net is not None:
-            net.train()
+    net_g, net_d = state.net_g, state.net_d
+    net_dur_d, net_wd = state.net_dur_d, state.net_wd
+    use_wd = net_wd is not None and slm_feature_fn is not None
+    for _, net, _ in state.nets():
+        net.train()
     mark = mark or (lambda name: None)
     wav = batch["wav"]
+    if half_precision(cfg):
+        def amp():
+            return torch.autocast(wav.device.type, dtype=torch.bfloat16)
+    else:
+        amp = contextlib.nullcontext
     metrics = {}
     noise_scale = mas_noise_scale(cfg, state.step)
     if cfg.model.use_noise_scaled_mas:
@@ -227,15 +262,17 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
         spec = compute_spec(cfg, wav)
 
     # ---- generator forward, once, with gradients ----
-    out = _forward(net_g, batch, spec, generator, noise_scale)
+    with amp():
+        out = _forward(net_g, batch, spec, generator, noise_scale)
     y_hat = out["audio"]  # [B, segment, 1]
     y_slice = slice_segments(wav[:, :, None],
                              out["ids_slice"] * d.hop_length, t.segment_size)
     mark("g_forward")
 
     # ---- discriminator update ----
-    y_d_r, y_d_g, _, _ = net_d(y_slice, y_hat.detach())
-    loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
+    with amp():
+        y_d_r, y_d_g, _, _ = net_d(y_slice, y_hat.detach())
+        loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
     state.opt_d.zero_grad(set_to_none=True)
     loss_disc.backward()
     grad_norm_d = _global_norm(net_d.parameters())
@@ -244,29 +281,51 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
 
     # ---- duration discriminator update ----
     if net_dur_d is not None:
-        probs = net_dur_d(*(out[k].detach() for k in DURATION_INPUTS))
-        loss_dur_disc, _, _ = discriminator_loss([probs[0]], [probs[1]])
+        with amp():
+            probs = net_dur_d(*(out[k].detach() for k in DURATION_INPUTS))
+            loss_dur_disc, _, _ = discriminator_loss([probs[0]], [probs[1]])
         state.opt_dur_d.zero_grad(set_to_none=True)
         loss_dur_disc.backward()
         state.opt_dur_d.step()
         metrics["loss/dur_disc"] = loss_dur_disc.detach()
         mark("dur_d_update")
 
+    # ---- WavLM (SLM) discriminator update on stopped features ----
+    if use_wd:
+        with torch.no_grad():
+            f_real = slm_feature_fn(y_slice)
+        f_fake = slm_feature_fn(y_hat)  # the G pass backpropagates here
+        with amp():
+            loss_slm, _, _ = discriminator_loss([net_wd(f_real)],
+                                                [net_wd(f_fake.detach())])
+        state.opt_wd.zero_grad(set_to_none=True)
+        loss_slm.backward()
+        state.opt_wd.step()
+        metrics["loss/slm_disc"] = loss_slm.detach()
+        mark("wd_update")
+
     # ---- generator update; the updated discriminators take no gradient ----
     y_mel, y_hat_mel = _mel_pair(cfg, spec, out)
-    y_d_r, y_d_g, fmap_r, fmap_g = _frozen(net_d, y_slice, y_hat)
-    loss_dur = torch.sum(out["l_length"].float())
-    loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * t.c_mel
-    loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                      out["y_mask"]) * t.c_kl
-    loss_fm = feature_loss(fmap_r, fmap_g)
-    loss_gen, _ = generator_loss(y_d_g)
-    total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
-    if net_dur_d is not None:
-        probs = _frozen(net_dur_d, *(out[k] for k in DURATION_INPUTS))
-        loss_dur_gen, _ = generator_loss([probs[1]])
-        total = total + loss_dur_gen
-        metrics["loss/dur_gen"] = loss_dur_gen.detach()
+    with amp():
+        y_d_r, y_d_g, fmap_r, fmap_g = _frozen(net_d, y_slice, y_hat)
+        loss_dur = torch.sum(out["l_length"].float())
+        loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * t.c_mel
+        loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"],
+                          out["logs_p"], out["y_mask"]) * t.c_kl
+        loss_fm = feature_loss(fmap_r, fmap_g)
+        loss_gen, _ = generator_loss(y_d_g)
+        total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
+        if net_dur_d is not None:
+            probs = _frozen(net_dur_d, *(out[k] for k in DURATION_INPUTS))
+            loss_dur_gen, _ = generator_loss([probs[1]])
+            total = total + loss_dur_gen
+            metrics["loss/dur_gen"] = loss_dur_gen.detach()
+        if use_wd:
+            loss_lm = torch.mean(torch.abs(f_real - f_fake))
+            loss_lm_gen, _ = generator_loss([_frozen(net_wd, f_fake)])
+            total = total + loss_lm + loss_lm_gen
+            metrics["loss/slm_feat"] = loss_lm.detach()
+            metrics["loss/slm_gen"] = loss_lm_gen.detach()
     state.opt_g.zero_grad(set_to_none=True)
     total.backward()
     grad_norm_g = _global_norm(net_g.parameters())

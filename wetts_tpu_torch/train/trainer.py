@@ -4,12 +4,23 @@ wetts/vits/train.py:37-346):
 - epoch-seeded bucketed batches, per-epoch exponential LR decay,
 - resume from the latest checkpoint, epoch = step // len(loader) + 1,
 - periodic eval + checkpoint every eval_interval steps, scalar logging to
-  `train.log` and `metrics.jsonl` (under a VITS2 config also the duration
-  discriminator's losses and the MAS noise scale).
+  `train.log`, `metrics.jsonl` and TensorBoard (`<model_dir>/tb`; under a
+  VITS2 config also the duration discriminator's losses and the MAS noise
+  scale), and at each eval the media of one validation utterance
+  (`gen/audio`, `gen/mel`, `gen/alignment`);
+- bf16 compute under `bf16_run` / `fp16_run` (`train/step.py`), the WavLM
+  (SLM) discriminator under `use_wd` with a frozen WavLM read from a local
+  HuggingFace model directory (`slm_model_dir`), and a tolerant resume
+  (`train/checkpoint.py`).
 
-One process, one device: the data-parallel mesh of the JAX trainer, its
-TensorBoard writer and its eval media are not ported yet. The trainer runs
-on the GPU and raises without one unless the caller passes `device="cpu"`.
+One process, one device: the data-parallel mesh of the JAX trainer is not
+ported yet. The trainer runs on the GPU and raises without one unless the
+caller passes `device="cpu"`.
+
+One divergence is kept on purpose: the JAX trainer's `_log_eval_media`
+catches every exception and logs a warning; here only a TensorBoard writer
+that cannot be made is a warning (as in the JAX package), and a failure of
+the media decode on the device raises.
 """
 
 from __future__ import annotations
@@ -25,6 +36,12 @@ import torch
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.data.dataset import TTSDataset, read_table
 from wetts_tpu_torch.data.sampler import Batch, BucketBatcher
+from wetts_tpu_torch.models.wavlm import (
+    WavLMConfig,
+    WavLMModel,
+    make_slm_feature_fn,
+)
+from wetts_tpu_torch.ops.spectral import mel_spectrogram
 from wetts_tpu_torch.train import checkpoint as ckpt
 from wetts_tpu_torch.train.state import GANTrainState, epoch_lr
 from wetts_tpu_torch.train.step import (
@@ -34,6 +51,15 @@ from wetts_tpu_torch.train.step import (
     train_step,
 )
 from wetts_tpu_torch.utils.device import resolve_device
+from wetts_tpu_torch.utils.summary import (
+    Summary,
+    plot_alignment_to_numpy,
+    plot_spectrogram_to_numpy,
+)
+
+# the eval media's synthesis scales: noise, length, duration noise
+# (wetts_tpu/train/trainer.py:297-300)
+MEDIA_SCALES = (0.667, 1.0, 0.8)
 
 
 def get_logger(model_dir: str) -> logging.Logger:
@@ -62,7 +88,13 @@ class Trainer:
         speaker_table_path: Optional[str] = None,
         val_manifest: Optional[str] = None,
         device=None,
+        slm_model_dir: Optional[str] = None,
+        summary=None,
     ):
+        """summary: where scalars and eval media go (an object with
+        `scalars`, `image`, `audio` and `flush`, as `utils.summary.Summary`);
+        None makes a `Summary` under `<model_dir>/tb`, or none, with a
+        warning, where no TensorBoard writer can be made."""
         self.device = resolve_device(device)
         phone_table = read_table(phone_table_path)
         speaker_table = (read_table(speaker_table_path)
@@ -75,6 +107,13 @@ class Trainer:
         self.model_dir = model_dir
         self.logger = get_logger(model_dir)
         self.metrics_path = os.path.join(model_dir, "metrics.jsonl")
+        # TensorBoard scalars, images and audio (reference train.py:509-581)
+        self.summary = summary
+        if summary is None:
+            try:
+                self.summary = Summary(os.path.join(model_dir, "tb"))
+            except ImportError as e:
+                self.logger.warning("tensorboard writer unavailable: %s", e)
 
         self.dataset = TTSDataset(train_manifest, phone_table, speaker_table,
                                   cfg.data)
@@ -86,18 +125,63 @@ class Trainer:
         self._val_batcher: Optional[BucketBatcher] = None
 
         # parameters and every draw of the run derive from the config's seed
-        net_g, net_d, net_dur_d = build_models(cfg)
+        net_g, net_d, net_dur_d, net_wd = build_models(cfg)
+        self.slm_feature_fn = None
+        if net_wd is not None and slm_model_dir:
+            self.slm_feature_fn = self._load_slm(slm_model_dir)
+        elif net_wd is not None:
+            self.logger.warning(
+                "use_wd is set but no --slm_model dir given; the WavLM "
+                "discriminator branch is disabled for this run")
+            net_wd = None
         init_weights_(net_g, net_d,
                       torch.Generator().manual_seed(cfg.train.seed),
-                      net_dur_d)
-        self.state = GANTrainState.create(
-            cfg, net_g.to(self.device), net_d.to(self.device),
-            None if net_dur_d is None else net_dur_d.to(self.device))
+                      net_dur_d, net_wd)
+
+        def put(net):
+            return None if net is None else net.to(self.device)
+
+        self.state = GANTrainState.create(cfg, put(net_g), put(net_d),
+                                          put(net_dur_d), put(net_wd))
         ckpt.load_checkpoint(model_dir, self.state)
         self.start_step = self.state.step
         # draws continue from a stream of their own after a resume
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + self.start_step)
+
+    def _load_slm(self, slm_model_dir: str):
+        """The frozen WavLM's feature function, from a local HuggingFace
+        model directory: `config.json` and `pytorch_model.bin` (read with
+        `weights_only=True`) or `model.safetensors`. A model with a head
+        has its `wavlm.` prefix stripped and its head's tensors left out;
+        a missing `masked_spec_embed` (HF keeps it only for masked
+        pre-training) stays at zero, unused."""
+        with open(os.path.join(slm_model_dir, "config.json")) as f:
+            wcfg = WavLMConfig.from_hf(json.load(f))
+        for name in ("pytorch_model.bin", "model.safetensors"):
+            path = os.path.join(slm_model_dir, name)
+            if not os.path.exists(path):
+                continue
+            if name.endswith(".bin"):
+                sd = torch.load(path, map_location="cpu", weights_only=True)
+            else:
+                from safetensors.torch import load_file
+
+                sd = load_file(path)
+            break
+        else:
+            raise FileNotFoundError(f"no weights under {slm_model_dir}")
+        sd = {k[len("wavlm."):] if k.startswith("wavlm.") else k: v
+              for k, v in sd.items()}
+        model = WavLMModel(wcfg)
+        missing, _ = model.load_state_dict(sd, strict=False)
+        missing = [k for k in missing if k != "masked_spec_embed"]
+        if missing:
+            raise KeyError(f"WavLM tensors missing from {slm_model_dir}: "
+                           f"{missing[:10]}")
+        return make_slm_feature_fn(model.to(self.device),
+                                   self.cfg.data.sampling_rate,
+                                   self.cfg.model.slm_sr)
 
     # ------------------------------------------------------------------
 
@@ -119,6 +203,9 @@ class Trainer:
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.summary is not None:
+            self.summary.scalars(step, {k: v for k, v in rec.items()
+                                        if k not in ("step", "epoch")})
         self.logger.info(
             "step %d epoch %d g=%.3f d=%.3f mel=%.3f %.2f steps/s",
             step, epoch, rec.get("loss/g_total", -1),
@@ -134,7 +221,8 @@ class Trainer:
             self.state.set_learning_rate(epoch_lr(cfg, epoch))
             for batch in self.batcher(epoch):
                 metrics = train_step(cfg, self.state, self._feed(batch),
-                                     self.generator)
+                                     self.generator,
+                                     slm_feature_fn=self.slm_feature_fn)
                 step = self.state.step
                 if step % cfg.train.log_interval == 0:
                     # float() of a metric waits for the device
@@ -175,7 +263,50 @@ class Trainer:
         if n:
             self._log_metrics(step, {k: v / n for k, v in totals.items()},
                               epoch, 0.0)
+        if self.summary is not None:
+            self._log_eval_media(step)
+
+    @torch.no_grad()
+    def _log_eval_media(self, step: int):
+        """The first validation utterance synthesised at MEDIA_SCALES, with
+        max_frames = 16 * max(1, segment // hop) and noise from a generator
+        seeded 0, in f32 with the generator in eval() mode (which refolds
+        the weight-norm buffers, and drops the decoder's packed copies,
+        that the optimiser's steps left stale): `gen/audio`, the mel of
+        that audio `gen/mel` and the alignment `gen/alignment` (reference
+        evaluate(), train.py:624-693)."""
+        d = self.cfg.data
+        item = self.val_dataset.items[0]
+        x = torch.as_tensor(item.phone_ids, dtype=torch.long,
+                            device=self.device)[None]
+        xl = torch.tensor([x.shape[1]], device=self.device)
+        sid = torch.tensor([self.val_dataset.speaker_id(item.speaker)],
+                           device=self.device)
+        max_frames = 16 * max(1, self.cfg.train.segment_size // d.hop_length)
+        net_g = self.state.net_g.eval()
+        with torch.autocast(self.device.type, enabled=False):
+            audio, y_len, attn = net_g.infer(
+                x, xl, sid, *MEDIA_SCALES, max_frames=max_frames,
+                generator=torch.Generator(self.device).manual_seed(0))
+        frames = int(y_len[0])
+        wav = audio[0, :frames * d.hop_length, 0]
+        if wav.numel():
+            self.summary.audio(step, "gen/audio", wav.cpu().numpy(),
+                               d.sampling_rate)
+            mel = mel_spectrogram(wav[None], d.filter_length,
+                                  d.n_mel_channels, d.sampling_rate,
+                                  d.hop_length, d.win_length, d.mel_fmin,
+                                  d.mel_fmax)
+            self.summary.image(step, "gen/mel", plot_spectrogram_to_numpy(
+                mel[0].cpu().numpy().T))
+            # attn is [B, T_text, T_spec]; the plot takes [T_spec, T_text]
+            self.summary.image(step, "gen/alignment", plot_alignment_to_numpy(
+                attn[0, :, :frames].T.cpu().numpy()))
+        self.summary.flush()
 
     def save(self, step: int):
+        """A checkpoint at `step`; the summary's events reach disk too."""
         ckpt.save_checkpoint(self.model_dir, self.state, step)
+        if self.summary is not None:
+            self.summary.flush()
         self.logger.info("saved checkpoint at step %d", step)

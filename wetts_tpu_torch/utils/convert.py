@@ -14,7 +14,8 @@ it and then `params_from_jax`.
 `discriminator_from_jax(tree, use_mrd)` of `convert_discriminator` (the
 multi-period discriminator, or with `use_mrd` the multi-period
 multi-resolution one), `duration_discriminator_from_jax(tree, dtype)` of
-`convert_duration_discriminator`, and `frontend_params_from_jax(params,
+`convert_duration_discriminator`, `wavlm_discriminator_from_jax(tree)`
+of `convert_wavlm_discriminator`, and `frontend_params_from_jax(params,
 meta)` of
 `wetts_tpu.models.bert_frontend.convert_frontend_torch` (the BERT frontend:
 Dense kernels transposed into `nn.Linear` weights, LayerNorm scale/bias to
@@ -366,6 +367,18 @@ def duration_discriminator_from_jax(tree: Dict, dtype: str = "dur_disc_1"
             m.state[f"{name}.gamma"] = torch.ones(channels)
             m.state[f"{name}.beta"] = torch.zeros(channels)
     m.dense(("output_layer",), "output_layer.0")
+    m.check_all_used()
+    return m.state
+
+
+def wavlm_discriminator_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """Flax WavLMDiscriminator params -> the port's state_dict (`pre`,
+    `convs.{0,1,2}`, `conv_post`, each weight-normed)."""
+    m = FlaxToTorch(tree.get("params", tree))
+    m.conv(("pre",), "pre")
+    for i in range(3):
+        m.conv((f"conv_{i}",), f"convs.{i}")
+    m.conv(("conv_post",), "conv_post")
     m.check_all_used()
     return m.state
 
