@@ -46,6 +46,23 @@ Phases, each of which must pass (any failure exits non-zero):
    Model's first request within 1 LSB, `bin/eval_mcd`
    (0.0 against itself; the reduced precisions' MCDs printed) and a Vocos
    bundle at bf16 warning and serving f32;
+5c. graph export (`phase_export`): `bin/export_graphs` on the card for
+   phase 5's f32 synthesizer (one text bucket, one frame bucket) and a
+   vits2_vocos_v1.json decoder, the .pt2 files loaded back: z within 2e-4
+   of the live `encode_infer` on the same draws, the audio within 2e-4 *
+   max(1, max|live|) of the live decode, the v1 decoder graph launching K1
+   through its registered operator 72 times a decode; export seconds,
+   bytes, and the graphs' device ms beside the live decoders';
+5d. the frontend's trainer (`phase_frontend_train`): `FrontendTrainer` at
+   bert-base-chinese's geometry (random weights and vocabulary) for one
+   epoch of batches of 32 over synthetic polyphone and prosody lines (a
+   prosody-only batch among them), every loss finite; `export_frontend
+   --bf16 --verify` into a bundle of phase 5's synthesizer, served by
+   `cli.model.Model` on the card;
+5e. the native binaries (`phase_native`): g++ builds `tts_main`,
+   `http_server_main` and `libwetts_text.so` on the port; `tts_main` on the
+   card writes 5d's bundle's audio within 1 LSB of the Model's, and
+   `http_server_main` answers `/` (the same audio) and `/stream`;
 6. check each precision's GPU audio against the plain path on the CPU on a
    small input;
 7. stream text through the Mandarin/English frontend (a random
@@ -91,11 +108,17 @@ Phases, each of which must pass (any failure exits non-zero):
     parameter and optimiser state f32, K2 once a step on f32 scores, the
     step split with the WavLM discriminator's update beside phase 11's f32
     step without it;
+11c. data parallelism (`phase_dp`): v1.json at batch 32 through the
+    data-parallel step on one NCCL rank, equal to the step without a
+    process group up to cuDNN's nondeterminism, host ms of each; two
+    processes of 16 rows on the card over gloo against one rank of 32
+    (metrics rel 2e-4, parameters 2e-6 at Adam eps 1e-2), K2 on each rank;
 12. check one training step on the GPU against the CPU at a small size,
     for VITS-base and for a reduced VITS2 config whose MAS noise moves the
     alignment.
-Phases 5, 5b, 7 and 8 are the serving main paths, phases 10, 11 and 11b
-the training main paths and the probe of phase 4 K3's own: each kernel's
+Phases 5, 5b, 5c, 5d, 7 and 8 are the serving main paths, phases 10, 11,
+11b and 11c the training main paths and the probe of phase 4 K3's own:
+each kernel's
 launch count is zeroed just before its path and read just after (under
 `half` every MRF stage goes through K1's bf16 instance and no int8 kernel
 runs; under `quantize` it is the reverse; the Vocos decoder launches none;
@@ -103,7 +126,9 @@ while training K1 launches only in v1's eval-mode decodes, each val
 batch's slice and the media utterance, and K2 once per step and once per
 val batch); the `kernels` line sums each kernel's launches over the
 serving paths (v1's batches, vits2_v1's batch, the bundle phase's
-requests; K1 also v1 training's eval) and gives K2 one entry per training path (v1's,
+requests, 5c's exported v1 decoder and 5d's bundle requests; K1 also v1
+training's eval) and gives K2 one entry per training path (v1's with
+11c's data-parallel steps,
 the VITS2 recipes' at the VITS2 step's shape, and the bf16 + WavLM
 discriminator run's at its step's shape).
 The last two lines are the kernels JSON and the device JSON. Imports
@@ -2760,6 +2785,645 @@ def compare_with_f32(name: str, audios, exact, corr_floor: float) -> dict:
     return out
 
 
+# ---- data parallelism, graph export, the frontend's trainer and the native
+# binaries ----------------------------------------------------------------
+
+# the data-parallel step (phase_dp): v1.json's batch of 32 at segment 8192
+# on a synthetic global batch of up to DP_FRAMES frames and DP_TEXT phones;
+# DP_TIMED_STEPS steps of each of the plain and the DP step at world 1, in
+# alternating order
+DP_FRAMES, DP_TEXT, DP_TIMED_STEPS, DP_RANKS = 400, 96, 20, 2
+# graph export (phase_export): v1's 64-phone text bucket and the serving
+# frame bucket; the exported and the live decoders timed in turns; the host
+# time of K1's operator against its launcher, OP_HOST_REPS calls of each
+# at each v1 stage in alternating order, and of OP_HOST_REPS live decodes
+EXPORT_TEXT, EXPORT_REPS, OP_HOST_REPS = 64, 5, 50
+# the frontend's trainer (phase_frontend_train): one epoch of four batches
+# of 32 at bert-base-chinese's geometry over polyphone and prosody lines
+# mixed by concatenation (two polyphone lines: two batches at least hold
+# none), then FRONTEND_TIMED_STEPS more steps, timed
+FRONTEND_BATCH, FRONTEND_POLY_LINES, FRONTEND_PROSODY_LINES = 32, 2, 126
+FRONTEND_TIMED_STEPS = 40
+# requests to the frontend bundle (phase_frontend_train) and to
+# http_server_main's `/` and `/stream` (phase_native): a pass over
+# SERVED_TEXTS texts warms every shape, then SERVED_REQUESTS requests of
+# each kind cycle through them, each timed
+SERVED_TEXTS, SERVED_REQUESTS = 8, 200
+
+
+def dp_batch(cfg) -> dict:
+    """A seeded global batch of cfg.train.batch_size rows on the CPU: text
+    lengths from DP_TEXT / 2 to DP_TEXT, frames from 3/4 of DP_FRAMES to
+    DP_FRAMES (the first row at both maxima), noise-like audio of 0.1 rms,
+    zero beyond each row's frames."""
+    rng = np.random.default_rng(SEED)
+    b, hop = cfg.train.batch_size, cfg.data.hop_length
+    text = rng.integers(DP_TEXT // 2, DP_TEXT + 1, b)
+    frames = rng.integers(3 * DP_FRAMES // 4, DP_FRAMES + 1, b)
+    text[0], frames[0] = DP_TEXT, DP_FRAMES
+    wav = (rng.standard_normal((b, DP_FRAMES * hop)) * 0.1).astype(
+        np.float32)
+    wav[np.arange(DP_FRAMES * hop)[None] >= frames[:, None] * hop] = 0.0
+    ids = rng.integers(1, N_PHONES, (b, DP_TEXT))
+    ids[np.arange(DP_TEXT)[None] >= text[:, None]] = 0
+    return {"phone_ids": torch.from_numpy(ids),
+            "text_lengths": torch.from_numpy(text),
+            "wav": torch.from_numpy(wav),
+            "spec_lengths": torch.from_numpy(frames),
+            "sid": torch.arange(b) % N_SPEAKERS}
+
+
+def dp_state(cfg):
+    """The seeded initial training state of `cfg` on the card."""
+    from wetts_tpu_torch.train.state import GANTrainState
+    from wetts_tpu_torch.train.step import build_models, init_weights_
+
+    nets = build_models(cfg)
+    init_weights_(nets[0], nets[1], torch.Generator().manual_seed(SEED),
+                  *nets[2:])
+    return GANTrainState.create(cfg, *(None if n is None else n.cuda()
+                                       for n in nets))
+
+
+def dp_step(cfg, state, batch: dict, rows=slice(None),
+            plain: bool = False) -> tuple:
+    """One train_step on `rows` of the global batch with the step's
+    generator and torch's default one seeded alike on every rank: (float
+    metrics, host ms, K2 launches). plain: the step without the DP path
+    even in a process group (what `train_step` runs without one)."""
+    from wetts_tpu_torch.ops.mas import maximum_path
+    from wetts_tpu_torch.train import step
+
+    feed = {k: v[rows].cuda() for k, v in batch.items()}
+    torch.manual_seed(5)
+    gen = torch.Generator("cuda").manual_seed(3)
+    maximum_path.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if plain:
+        metrics = step._step(cfg, state, feed, gen, None, None, 1,
+                             lambda params: None)
+    else:
+        metrics = step.train_step(cfg, state, feed, gen)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    return metrics, (time.perf_counter() - t0) * 1e3, maximum_path.launches
+
+
+def parameters_of(state) -> dict:
+    return {f"{name}.{k}": v.detach().clone()
+            for name, net, _ in state.nets()
+            for k, v in net.named_parameters()}
+
+
+def max_param_diff(a: dict, b: dict) -> tuple:
+    return max((float((a[k] - b[k]).abs().max()), k) for k in a)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rank_main(rank: int, tmp: str, port: int) -> None:
+    """One of DP_RANKS processes on the one card over gloo with CUDA
+    tensors (NCCL refuses two ranks on one GPU): its rows of the global
+    batch through the data-parallel step, from the same seeded state as
+    every rank; rank 0 writes its parameters, each rank its metrics and K2
+    launches."""
+    import torch.distributed as dist
+
+    from wetts_tpu_torch.parallel.mesh import init_distributed
+    from wetts_tpu_torch.config import Config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", DP_RANKS, rank, "cuda:0")
+    try:
+        cfg = Config.from_json(CONFIG)
+        cfg.num_phones, cfg.num_speakers = N_PHONES, N_SPEAKERS
+        cfg.train.eps = 1e-2
+        batch = torch.load(os.path.join(tmp, "batch.pt"))
+        state = dp_state(cfg)
+        b = cfg.train.batch_size // DP_RANKS
+        rows = slice(rank * b, (rank + 1) * b)
+        metrics, _, mas = dp_step(cfg, state, batch, rows)
+        out = {"metrics": metrics, "mas": mas, "backend": dist.get_backend()}
+        if rank == 0:
+            out["params"] = {k: v.cpu() for k, v in
+                             parameters_of(state).items()}
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp() -> dict:
+    """Data parallelism (`parallel/mesh.py`) at v1.json's full width,
+    batch 32, segment 8192, on a seeded synthetic global batch.
+    Adam's eps is 1e-2 throughout, as in tests/test_dp_equivalence.py: at
+    v1's 1e-9 the first update of a parameter whose gradient is zero in
+    exact arithmetic (the attention's key biases) is +-lr by the sign of
+    rounding noise, so cuDNN's nondeterminism alone moved such a parameter
+    by 3.7e-4 between two runs of the same step on the card.
+    1. One rank of torch.distributed on NCCL takes the step through the
+       data-parallel code (shares of the global loss, the gradients
+       all-reduced per net, the metrics all-reduced) from the same state as
+       the step without a process group: at world 1 the two are the same
+       computation, and only cuDNN's own nondeterminism may part them (its
+       size is reported: max abs over the parameters, max rel over the
+       metrics; the parameters held to 2e-6). Then DP_TIMED_STEPS more
+       steps of each in alternating order (plain, DP, DP, plain, ...),
+       host ms of each.
+    2. DP_RANKS processes on the one card over gloo with CUDA tensors
+       (`init_distributed` picks gloo: more processes than GPUs), each
+       with batch 16, against one rank with batch 32 on the same global
+       batch (tests/test_dp_equivalence.py's bounds: metrics rel 2e-4,
+       parameters max abs 2e-6); K2 once on each rank. Not timed: the
+       ranks share one card and the host's cores.
+    One `dp` line."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from wetts_tpu_torch.config import Config
+    from wetts_tpu_torch.parallel.mesh import init_distributed
+
+    cfg = Config.from_json(CONFIG)
+    cfg.num_phones, cfg.num_speakers = N_PHONES, N_SPEAKERS
+    check(cfg.train.batch_size == 32 and cfg.train.segment_size == 8192,
+          "v1.json's batch is no longer 32 x 8192")
+    cfg.train.eps = 1e-2
+    batch = dp_batch(cfg)
+    out = {"batch": cfg.train.batch_size, "frames": DP_FRAMES}
+
+    # 1. world 1 on NCCL: the data-parallel path against the plain step
+    plain, dp = dp_state(cfg), dp_state(cfg)
+    m_plain, _, _ = dp_step(cfg, plain, batch)
+    p_plain = parameters_of(plain)
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda:0")
+    try:
+        check(dist.get_backend() == "nccl", "world 1 is not on NCCL")
+        m_dp, _, mas = dp_step(cfg, dp, batch)
+        p_dp = parameters_of(dp)
+        times = {"plain": [], "dp": []}
+        for i in range(DP_TIMED_STEPS):
+            for key in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+                times[key].append(dp_step(
+                    cfg, plain if key == "plain" else dp, batch,
+                    plain=key == "plain")[1])
+    finally:
+        dist.destroy_process_group()
+    check(set(m_dp) == set(m_plain), "the DP step's metrics differ in keys")
+    out["world1_param_max_abs"], where = max_param_diff(p_dp, p_plain)
+    out["world1_metric_max_rel"] = max(
+        abs(m_dp[k] - m_plain[k]) / max(abs(m_plain[k]), 1e-12)
+        for k in m_plain)
+    check(out["world1_param_max_abs"] <= 2e-6 and mas == 1,
+          f"world 1 on NCCL: parameters {out['world1_param_max_abs']} "
+          f"from the plain step ({where}); K2 {mas} launches")
+    out["host_ms_plain"] = spread(times["plain"])
+    out["host_ms_dp_world1"] = spread(times["dp"])
+    # each DP step over the plain step just before or after it
+    out["dp_over_plain"] = spread(np.array(times["dp"])
+                                  / np.array(times["plain"]))
+    del plain, dp, p_plain, p_dp
+    torch.cuda.empty_cache()
+
+    # 2. two ranks of 16 rows against one of 32
+    ref = dp_state(cfg)
+    m_ref, _, mas_ref = dp_step(cfg, ref, batch)
+    p_ref = parameters_of(ref)
+    del ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(batch, os.path.join(tmp, "batch.pt"))
+        mp.spawn(dp_rank_main, args=(tmp, free_port()), nprocs=DP_RANKS)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(DP_RANKS)]
+    m2 = ranks[0]["metrics"]
+    for r in ranks[1:]:
+        check(r["metrics"] == m2, "the ranks' metrics differ")
+    bad = [k for k in m_ref if abs(m2[k] - m_ref[k])
+           > 2e-4 * max(abs(m_ref[k]), 1.0)]
+    out["two_ranks_metric_max_rel"] = max(
+        abs(m2[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12) for k in m_ref)
+    out["two_ranks_param_max_abs"], where = max_param_diff(
+        {k: v.cuda() for k, v in ranks[0]["params"].items()}, p_ref)
+    out["k2_launches_per_rank"] = [r["mas"] for r in ranks]
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "two ranks on one card are not on gloo")
+    check(not bad, f"two ranks against one: metrics {bad} beyond rel 2e-4")
+    check(out["two_ranks_param_max_abs"] < 2e-6,
+          f"two ranks against one: parameters "
+          f"{out['two_ranks_param_max_abs']} apart at {where}")
+    check(mas_ref == 1 and out["k2_launches_per_rank"] == [1] * DP_RANKS,
+          f"K2 launches: {mas_ref}, {out['k2_launches_per_rank']}")
+    out["mas_launches"] = mas + mas_ref + sum(out["k2_launches_per_rank"])
+    print("dp " + json.dumps(out))
+    return out
+
+
+def phase_export(cfg, model) -> dict:
+    """Graph export (`bin/export_graphs.py`) on the card. First K1's
+    registered operator (`mrf_stage_op`) at each of v1's four MRF stages of
+    one FRAME_BUCKET decode at B = 1: equal to the launcher `mrf_stage`,
+    and within K1's bound (1e-4 * max(1, max|plain|)) of the plain version.
+    Then v1.json at full
+    width (phase 5's f32 synthesizer) at text bucket EXPORT_TEXT and frame
+    bucket FRAME_BUCKET, and the vits2_vocos_v1.json decoder at the same
+    frame bucket, saved as .pt2 files and loaded back. The encoder graph
+    fed `encoder_noise(seed)` gives the live `encode_infer`'s z on the same
+    draws within 2e-4 and its y_length; each decoder graph on that z the
+    live decode's audio within 2e-4 * max(1, max|live|); the v1 decoder
+    graph launches K1 (`mrf_stage_op`) 72 times a decode. Export seconds
+    and bytes per graph; the decoder graphs' ms beside the live decoders'
+    (CUDA events around EXPORT_REPS calls back to back, in turns); the
+    host's us of one stage call through the operator and through the
+    launcher beside the live v1 decode's wall ms. One `export` line."""
+    from wetts_tpu_torch.bin import export_graphs as eg
+    from wetts_tpu_torch.models.mrf import (
+        mrf_stage,
+        mrf_stage_as_op,
+        mrf_stage_reference,
+    )
+    from wetts_tpu_torch.models.synthesizer import Synthesizer
+    from wetts_tpu_torch.ops import random
+
+    model = copy.deepcopy(model).eval()
+    vcfg = vits2_config(VITS2_CONFIG, N_PHONES)
+    vocos = random_init_(Synthesizer(vcfg), SEED).cuda().eval()
+    out = {"op_vs_launcher_equal": True, "op_vs_plain_max_rel": 0.0}
+    # the operator against the launcher (equal) and the plain version (K1's
+    # bound) at each v1 stage's shape of one FRAME_BUCKET decode; then the
+    # host's us of one call of each, OP_HOST_REPS in alternating order (the
+    # device idle before each call, so that no queue is waited for)
+    dec, m_cfg = model.dec, cfg.model
+    t = FRAME_BUCKET
+    host_us = {"launcher": [], "op": []}
+    with torch.no_grad():
+        for i, (stage, packed) in enumerate(zip(dec.checked_stages(),
+                                                dec.packed_stages())):
+            t *= m_cfg.upsample_rates[i]
+            c = stage[0][0][0].shape[0]
+            h = torch.randn(1, t, c, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(i))
+            args = (stage, m_cfg.resblock, dec.kernel_sizes, dec.dilations)
+            got = mrf_stage_as_op(h, *args, packed)
+            out["op_vs_launcher_equal"] &= bool(torch.equal(
+                got, mrf_stage(h, *args, checked=True, packed=packed)))
+            plain = mrf_stage_reference(h, *args)
+            out["op_vs_plain_max_rel"] = max(
+                out["op_vs_plain_max_rel"], float((got - plain).abs().max())
+                / max(1.0, float(plain.abs().max())))
+            calls = {"launcher": lambda: mrf_stage(
+                         h, *args, checked=True, packed=packed),
+                     "op": lambda: mrf_stage_as_op(h, *args, packed)}
+            us = {k: [] for k in calls}
+            for r in range(OP_HOST_REPS):
+                for key in (("launcher", "op") if r % 2 == 0
+                            else ("op", "launcher")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    calls[key]()
+                    us[key].append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+            for key in us:
+                host_us[key].append(spread(us[key]))
+    check(out["op_vs_launcher_equal"] and out["op_vs_plain_max_rel"] <= 1e-4,
+          f"K1's operator: {out}")
+    out["stage_call_host_us"] = host_us
+    # what the operator adds to a decode's four stage calls (p50s)
+    out["op_extra_host_us_per_decode"] = sum(
+        o["p50"] - l["p50"] for o, l in zip(host_us["op"],
+                                            host_us["launcher"]))
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        graphs = {}
+        for name, c, m, texts in (("v1", cfg, model, [EXPORT_TEXT]),
+                                  ("vits2_vocos_v1", vcfg, vocos, [])):
+            t0 = time.perf_counter()
+            g = eg.export_graphs(c, m, texts, [FRAME_BUCKET])
+            out[f"{name}_export_s"] = time.perf_counter() - t0
+            man = eg.write_graphs(g, os.path.join(tmp, name), {})
+            out[f"{name}_bytes"] = {k: v["bytes"] for k, v in
+                                    man["graphs"].items()}
+            graphs[name] = {k: torch.export.load(os.path.join(
+                tmp, name, f"{k}.pt2")).module() for k in man["graphs"]}
+        rng = np.random.default_rng(SEED)
+        x = torch.from_numpy(rng.integers(1, N_PHONES, (1, EXPORT_TEXT))
+                             ).cuda()
+        xl = torch.tensor([EXPORT_TEXT - 5], device="cuda")
+        sid = torch.tensor([1], device="cuda")
+        noise = eg.encoder_noise(cfg, 7, EXPORT_TEXT, device="cuda")
+        with torch.no_grad():
+            z, y_len = graphs["v1"][f"encoder_t{EXPORT_TEXT}"](x, xl, sid,
+                                                                *noise)
+            with random.supplied(noise):
+                z_live, y_live, *_ = model.encode_infer(
+                    x, xl, sid, 0.667, 1.0, 0.8,
+                    max_frames=12 * EXPORT_TEXT)
+            out["z_max_abs"] = float((z - z_live).abs().max())
+            check(out["z_max_abs"] <= 2e-4 and torch.equal(y_len, y_live),
+                  f"the encoder graph's z is {out['z_max_abs']} from the "
+                  f"live model's (y_length {y_len} / {y_live})")
+            zb = z[:, :FRAME_BUCKET].contiguous()
+            for name, m in (("v1", model), ("vits2_vocos_v1", vocos)):
+                dec = graphs[name][f"decoder_f{FRAME_BUCKET}"]
+                mrf_stage.launches = 0
+                audio = dec(zb, sid)
+                torch.cuda.synchronize()
+                n = mrf_stage.launches
+                live = m.decode(zb, sid=sid)
+                err = float((audio - live).abs().max())
+                bound = 2e-4 * max(1.0, float(live.abs().max()))
+                out[f"{name}_audio_max_abs"] = err
+                check(err <= bound, f"{name}'s decoder graph is {err} from "
+                      f"the live decode (bound {bound})")
+                want = 72 if name == "v1" else 0
+                check(n == want, f"{name}'s decoder graph launched K1 {n} "
+                      f"times, not {want}")
+                launches += n
+                if name == "v1":
+                    # the live B = 1 decode's wall ms, one decode at a time
+                    wall = []
+                    for _ in range(OP_HOST_REPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        m.decode(zb, sid=sid)
+                        torch.cuda.synchronize()
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                    out["v1_live_decode_wall_ms"] = spread(wall)
+                # in turns, CUDA events around EXPORT_REPS calls back to
+                # back: the device's time, or the host's where it is the
+                # slower (a B = 1 decode takes the host as long to queue as
+                # a sleep of 27 ms, so device_ms cannot hide it)
+                calls = {"graph": lambda: dec(zb, sid),
+                         "live": lambda: m.decode(zb, sid=sid)}
+                times = {k: [] for k in calls}
+                for key in ("graph", "live", "live", "graph"):
+                    mrf_stage.launches = 0
+                    times[key].append(cuda_ms(calls[key], EXPORT_REPS))
+                    if key == "graph":
+                        launches += mrf_stage.launches
+                out[f"{name}_decode_ms"] = {k: float(np.mean(v))
+                                            for k, v in times.items()}
+    out["mrf_stage_launches"] = launches
+    print("export " + json.dumps(out))
+    return out
+
+
+def frontend_corpus(d: str, vocab: dict, pinyin2id: dict, hanzi) -> tuple:
+    """Seeded synthetic supervision in the reference's formats under d:
+    polyphone lines (hanzi with one `▁pinyin▁` label) and prosody lines
+    (words of 1-3 hanzi, each followed by a rank #1-#4), and vocab.txt;
+    (vocab path, polyphone file, prosody file)."""
+    rng = np.random.default_rng(SEED)
+    prons = sorted(pinyin2id, key=pinyin2id.get)
+
+    def chars(n):
+        return "".join(hanzi[int(i)] for i in rng.integers(0, len(hanzi), n))
+
+    os.makedirs(d)
+    paths = [os.path.join(d, n) for n in ("vocab.txt", "poly.txt",
+                                           "pros.txt")]
+    with open(paths[0], "w", encoding="utf8") as f:
+        f.writelines(t + "\n" for t in sorted(vocab, key=vocab.get))
+    with open(paths[1], "w", encoding="utf8") as f:
+        for _ in range(FRONTEND_POLY_LINES):
+            pron = prons[int(rng.integers(0, len(prons)))]
+            f.write(f"{chars(int(rng.integers(4, 12)))}▁{pron}▁"
+                    f"{chars(int(rng.integers(2, 10)))}\n")
+    with open(paths[2], "w", encoding="utf8") as f:
+        for _ in range(FRONTEND_PROSODY_LINES):
+            words = [f"{chars(int(rng.integers(1, 4)))} "
+                     f"#{int(rng.integers(1, 4))}"
+                     for _ in range(int(rng.integers(3, 9)))]
+            f.write(" ".join(words)[:-1] + "4\n")
+    return tuple(paths)
+
+
+def phase_frontend_train(cfg, model, tmp: str) -> tuple:
+    """The frontend's trainer (`frontend/train.py`) on the card at
+    bert-base-chinese's geometry (hidden 768, 12 layers, vocab 21128;
+    random weights, the vendored tables' hanzi as its vocabulary): one
+    epoch of FRONTEND_BATCH batches over FRONTEND_POLY_LINES polyphone and
+    FRONTEND_PROSODY_LINES prosody lines (a prosody-only batch among them,
+    whose polyphone loss must be 0) through `FrontendTrainer.train`, every
+    loss finite, the CV accuracies and `params.npz`; then `export_frontend
+    --bf16 --verify` (cosine of the posteriors above 0.95) into a model
+    bundle of phase 5's f32 synthesizer (durations scaled as phase 5b's),
+    served by `cli.model.Model` on the card. FRONTEND_TIMED_STEPS more
+    steps after the epoch give the step's host ms; the bundle answers a
+    pass over SERVED_TEXTS texts (every shape warmed), then SERVED_REQUESTS
+    requests cycling through them, each timed. Returns (the
+    `frontend_train` line's dict, the bundle, its texts, the Model's int16
+    audio of the first text as its first request)."""
+    import contextlib as ctx
+    import dataclasses
+
+    from wetts_tpu_torch.bin import export_frontend
+    from wetts_tpu_torch.bin.train_frontend import build_model
+    from wetts_tpu_torch.cli.model import Model
+    from wetts_tpu_torch.frontend.dataset import (
+        IGNORE_ID,
+        CharTokenizer,
+        FrontendDataset,
+    )
+    from wetts_tpu_torch.frontend.train import FrontendTrainer
+    from wetts_tpu_torch.models.bert_frontend import BertConfig
+    from wetts_tpu_torch.models.mrf import mrf_stage
+    from wetts_tpu_torch.utils.convert import convert_synthesizer
+    from wetts_tpu_torch.utils.params_io import save_params_npz
+
+    vocab, lexicon, pinyin2id, _, _, phones = frontend_tables()
+    hanzi = [w for w in lexicon.words() if len(w) == 1]
+    vocab_path, poly, pros = frontend_corpus(
+        os.path.join(tmp, "frontend_data"), vocab, pinyin2id, hanzi)
+    tok = CharTokenizer(vocab_path)
+    prosody = {f"#{i}": i for i in range(5)}
+    train_ds = FrontendDataset(tok, poly, pinyin2id, pros, prosody)
+    cv_ds = FrontendDataset(tok, poly, pinyin2id, None, prosody)
+    bert = BertConfig()
+    fm, mc = build_model(bert, len(pinyin2id), 5)
+    run = os.path.join(tmp, "frontend_run")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.json"), "w") as f:
+        json.dump(mc, f)
+    trainer = FrontendTrainer(fm, train_ds, cv_ds, run, epochs=1,
+                              batch_size=FRONTEND_BATCH)
+    steps = []
+    step = trainer.train_step
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "prosody_only": bool((batch[2] == IGNORE_ID).all()),
+                      **metrics})
+        return metrics
+
+    trainer.train_step = timed_step
+    last = trainer.train()
+    n_steps, epoch = len(steps) + FRONTEND_TIMED_STEPS, 1
+    while len(steps) < n_steps:
+        for batch in train_ds.batches(FRONTEND_BATCH, epoch):
+            if len(steps) < n_steps:
+                timed_step(batch)
+        epoch += 1
+    # the first step of the run apart: it builds cuBLAS's plans
+    out = {"steps": len(steps), "first_step_ms": steps[0]["ms"],
+           "step_ms": spread([s["ms"] for s in steps[1:]]), "last": last}
+    check(all(np.isfinite(v) for s in steps for v in s.values()),
+          f"a frontend step's loss is not finite: {steps}")
+    only = [s for s in steps if s["prosody_only"]]
+    check(only and all(s["loss_phone"] == 0.0 for s in only),
+          f"no prosody-only batch with a polyphone loss of 0: {steps}")
+    out["prosody_only_batches"] = len(only)
+    check(os.path.exists(os.path.join(run, "params.npz")),
+          "the trainer wrote no params.npz")
+
+    # the bundle: phase 5's synthesizer, the exported bf16 frontend
+    bundle = os.path.join(tmp, "bundle")
+    phone2id = {ph: i % N_PHONES for i, ph in enumerate(phones)}
+    write_tables(bundle, phone2id, CONFIG)
+    model = copy.deepcopy(model).eval()
+    with torch.no_grad():
+        p = dict(model.named_parameters())
+        p["dp.flows.0.m"][0] -= (BUNDLE_LOG_DURATION_SHIFT
+                                 * torch.exp(p["dp.flows.0.logs"][0]))
+    save_params_npz(os.path.join(bundle, "params.npz"), convert_synthesizer(
+        {k: v.cpu().numpy() for k, v in model.state_dict().items()}, cfg))
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(said):
+        export_frontend.main([
+            "--model_dir", run, "--vocab", vocab_path, "--out_dir",
+            os.path.join(bundle, "frontend"), "--bf16", "--verify"])
+    out["export_frontend_s"] = time.perf_counter() - t0
+    out["export_verify_cosine"] = float(
+        said.getvalue().split("similarity =")[1].split()[0])
+    check(out["export_verify_cosine"] > 0.95, "export_frontend --verify")
+
+    rng = np.random.default_rng(SEED + 1)
+    texts = [stream_text(rng, hanzi, 1) for _ in range(SERVED_TEXTS)]
+    served = Model(bundle)
+    check(served.engine.frontend is not None, "the bundle's frontend is "
+          "not served")
+    mrf_stage.launches = 0
+    audios = [served.synthesis(text, "spk1") for text in texts]
+    check(all(a.size and np.abs(a).max() > 0 for a in audios),
+          "the bundle served empty audio")
+    ms = []
+    for i in range(SERVED_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served.synthesis(texts[i % len(texts)], "spk1")
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["request_ms"] = spread(ms)
+    out["mrf_stage_launches"] = mrf_stage.launches
+    out["audio_s"] = spread([a.size / cfg.data.sampling_rate
+                             for a in audios])
+    out["bert"] = dataclasses.asdict(bert)
+    print("frontend_train " + json.dumps(out))
+    return out, bundle, texts, audios[0]
+
+
+def phase_native(bundle: str, texts, first_audio) -> dict:
+    """The native binaries on the port (`utils/native_build.py`): g++
+    builds `tts_main`, `http_server_main` (the repo's `native/src`, its
+    `embed_engine.cc` importing the port's module) and `libwetts_text.so`;
+    `tts_main` on the card (WETTS_DEVICE unset) writes the WAV of
+    phase_frontend_train's bundle and first text within 1 int16 LSB of the
+    Model's first request; then
+    `http_server_main` answers `/` with the same audio (its first request),
+    then `/` and `/stream` for each of the other texts (every shape
+    warmed), then SERVED_REQUESTS `/` requests and as many `/stream`
+    requests cycling through the texts, each timed (`/stream`: to its first
+    chunk and to its end). One `native` line."""
+    from wetts_tpu_torch.text import native
+    from wetts_tpu_torch.utils import native_build
+
+    out = {}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        bins = dict(zip(native_build.TARGETS,
+                        pool.map(native_build.build, native_build.TARGETS)))
+    out["build_s"] = time.perf_counter() - t0
+    native._SEARCHED = False
+    check(native.available() and native.sentence_segment("你好。再见。")
+          == ["你好。", "再见。"], "libwetts_text.so does not answer")
+    env = native_build.run_env()
+    env.pop("WETTS_DEVICE", None)
+    env.pop("WETTS_PRECISION", None)
+    with open(os.path.join(bundle, "config.json")) as f:
+        rate = json.load(f)["data"]["sampling_rate"]
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = os.path.join(tmp, "out.wav")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [str(bins["tts_main"]), "--model_dir", bundle, "--text",
+             texts[0], "--wav_path", wav_path, "--sname", "spk1",
+             "--repo_root", ROOT], env=env, capture_output=True, text=True,
+            timeout=300)
+        out["tts_main_wall_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"tts_main exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        with wave.open(wav_path) as w:
+            check(w.getframerate() == rate, "tts_main's rate")
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    out["tts_main_lsb"] = int16_max_diff([pcm], [first_audio])
+    check(out["tts_main_lsb"] <= 1, f"tts_main's audio is "
+          f"{out['tts_main_lsb']} LSB from the Model's")
+    port = free_port()
+    server = subprocess.Popen(
+        [str(bins["http_server_main"]), "--model_dir", bundle, "--port",
+         str(port), "--repo_root", ROOT], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.time() + 240
+        while True:
+            check(server.poll() is None and time.time() < deadline,
+                  "http_server_main did not start")
+            try:
+                http.client.HTTPConnection("127.0.0.1", port,
+                                           timeout=1).connect()
+                break
+            except OSError:
+                time.sleep(0.5)
+        out["http_first_lsb"] = int16_max_diff([http_wav(port, texts[0])],
+                                               [first_audio])
+        check(out["http_first_lsb"] <= 1, "http_server_main's first "
+              f"request is {out['http_first_lsb']} LSB from the Model's")
+        for text in texts:
+            wav = http_wav(port, text)
+            pcm, _ = read_stream(port, text)
+            check(wav.size > 0 and pcm.size > 0 and np.abs(pcm).max() > 0,
+                  "http_server_main answered empty audio")
+        request_ms, first_ms, stream_ms = [], [], []
+        for i in range(SERVED_REQUESTS):
+            t0 = time.perf_counter()
+            wav = http_wav(port, texts[i % len(texts)])
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+            check(wav.size > 0, "http_server_main answered empty audio")
+        for i in range(SERVED_REQUESTS):
+            t0 = time.perf_counter()
+            pcm, first = read_stream(port, texts[i % len(texts)])
+            stream_ms.append((time.perf_counter() - t0) * 1e3)
+            first_ms.append(first)
+            check(pcm.size > 0, "http_server_main streamed no audio")
+        out["http_request_ms"] = spread(request_ms)
+        out["stream_first_chunk_ms"] = spread(first_ms)
+        out["stream_ms"] = spread(stream_ms)
+    finally:
+        server.kill()
+        server.wait(timeout=30)
+    print("native " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2816,6 +3480,11 @@ def main() -> int:
                          "batch_ms_p50": s["batch_ms_p50"]}
         for s in (synth, synth_bf16, synth_int8)}))
     bundle = phase_bundle(cfg, v1_model)
+    export = phase_export(cfg, v1_model)
+    with tempfile.TemporaryDirectory() as tmp:
+        frontend_train, fe_bundle, fe_texts, fe_audio = phase_frontend_train(
+            cfg, v1_model, tmp)
+        phase_native(fe_bundle, fe_texts, fe_audio)
     del v1_model
     torch.cuda.empty_cache()
     fe = build_frontend()
@@ -2834,6 +3503,8 @@ def main() -> int:
     bf16_training, bf16_mas_launches, k2_bf16 = phase_bf16_wd_training(
         card, vits2_training)
     print("bf16_wd_training " + json.dumps(bf16_training))
+    torch.cuda.empty_cache()
+    dp = phase_dp()
     print("train_reference " + json.dumps(phase_train_reference()))
     v1_rows = [r for r in mas_rows
                if (r["B"], r["T_spec"], r["T_text"]) in MAS_V1_SHAPES]
@@ -2876,7 +3547,9 @@ def main() -> int:
         kernel("mrf_stage", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
                launches["mrf_stage"] + vits2["f32"]["mrf_stage"]
-               + served("f32", "mrf_stage") + train_launches["mrf"],
+               + served("f32", "mrf_stage") + train_launches["mrf"]
+               + export["mrf_stage_launches"]
+               + frontend_train["mrf_stage_launches"],
                rows, "operations", total(rows, "library_ms")),
         kernel("mrf_stage_bf16", "mrf_stage.cu",
                "wetts_tpu/models/mrf_pallas.py:172",
@@ -2884,7 +3557,8 @@ def main() -> int:
                + served("bf16", "mrf_stage"),
                rows_bf16, "operations", total(rows_bf16, "library_ms")),
         kernel("mas", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",
-               train_launches["mas"], v1_rows, mas_bound_by),
+               train_launches["mas"] + dp["mas_launches"], v1_rows,
+               mas_bound_by),
         # K2 at the VITS2 step's noised scores, its launches those of both
         # VITS2 training main paths
         kernel("mas_vits2", "mas.cu", "wetts_tpu/ops/mas_pallas.py:81",

@@ -8,8 +8,9 @@ decoder's chunk shapes, and a streamed synthesis whose batched tail equals
 its per-chunk decode on the card at each precision; the Vocos decoder's
 iSTFT at any batch size; `cli.model.Model` on a bundle, GPU against CPU;
 a bf16 training step with the WavLM discriminator (K2 on f32 scores, f32
-master state, within 0.15 of the f32 step), and the eval media's decode
-after weight updates through K1 against the live weights' plain decode.
+master state, within 0.15 of the f32 step), the eval media's decode
+after weight updates through K1 against the live weights' plain decode,
+and K1 as the registered operator that exported graphs call.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere (a CUDA kernel has no CPU
 mode). Imports nothing of JAX, so on a machine without JAX run it as
@@ -101,6 +102,38 @@ def test_mrf_kernel_matches_plain(cuda, c, t, kind):
     want = mrf_stage_reference(h, stage, kind, KERNEL_SIZES, DILATIONS)
     scale = max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["1", "2"])
+def test_mrf_stage_operator_is_the_launcher(cuda, kind, dtype):
+    """`mrf_stage_op`, the stage as `torch.ops.wetts_tpu_torch.mrf_stage`
+    (what an exported decoder calls), launches K1 as `mrf_stage` does, with
+    equal outputs, packed weights given or not, and traces under
+    torch.export to one node that still launches it."""
+    from wetts_tpu_torch.models.mrf import mrf_stage_as_op, pack_stage
+
+    gen = torch.Generator().manual_seed(7)
+    stage = [[(w.to(cuda, dtype), b.to(cuda, dtype)) for w, b in br]
+             for br in _stage(64, kind, gen)]
+    h = torch.randn(2, 700, 64, generator=gen).to(cuda, dtype)
+    want = mrf_stage(h, stage, kind, KERNEL_SIZES, DILATIONS)
+    before = mrf_stage.launches
+    for packed in (None, pack_stage(stage)):
+        got = mrf_stage_as_op(h, stage, kind, KERNEL_SIZES, DILATIONS,
+                              packed)
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert mrf_stage.launches - before == 2 * 9 * (2 if kind == "1" else 1)
+
+    class Stage(torch.nn.Module):
+        def forward(self, x):
+            return mrf_stage_as_op(x, stage, kind, KERNEL_SIZES, DILATIONS)
+
+    ep = torch.export.export(Stage(), (h,))
+    assert [n.target for n in ep.graph.nodes if n.op == "call_function"] \
+        == [torch.ops.wetts_tpu_torch.mrf_stage.default]
+    assert torch.equal(ep.module()(h), want)
 
 
 def test_mrf_kernel_refuses_what_it_cannot_run(cuda):

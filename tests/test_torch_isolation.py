@@ -62,7 +62,10 @@ PROBE = textwrap.dedent("""
         "cli.model", "cli.tts", "cli.hub", "bin.export_bundle",
         "bin.eval_mcd", "serving.embed", "text.native",
         "utils.onnx_import", "ops.resample", "models.wavlm",
-        "utils.summary"]
+        "utils.summary", "parallel", "parallel.mesh", "bin.export_graphs",
+        "frontend.dataset", "frontend.eval", "frontend.train",
+        "bin.train_frontend", "bin.eval_frontend", "bin.export_frontend",
+        "utils.native_build"]
     missing = [m for m in expected
                if "wetts_tpu_torch." + m not in sys.modules]
     assert not missing, missing
@@ -101,8 +104,13 @@ PROBE = textwrap.dedent("""
                 pass
             else:
                 raise AssertionError(option + " without a GPU did not raise")
-        from wetts_tpu_torch.bin import infer_vits, train_vits, voice_convert
+        from wetts_tpu_torch.bin import (eval_frontend, export_frontend,
+                                         export_graphs, infer_vits,
+                                         train_frontend, train_vits,
+                                         voice_convert)
         from wetts_tpu_torch.cli import model, tts
+        from wetts_tpu_torch.frontend.train import FrontendTrainer
+        from wetts_tpu_torch.parallel import init_distributed
         from wetts_tpu_torch.tools import probe_int8
         from wetts_tpu_torch.train.trainer import Trainer
         assert probe_int8.main() == 1  # no GPU: no result
@@ -127,6 +135,19 @@ PROBE = textwrap.dedent("""
                          "--source_speaker", "a", "--target_speaker", "a",
                          "--out", "unused"]),
                     lambda: model.Model(sys.argv[1]),
+                    lambda: export_graphs.main(
+                        ["--cfg", "examples/baker/configs/v1.json",
+                         "--model_dir", sys.argv[1], "--phone_table", phones,
+                         "--out_dir", sys.argv[1]]),
+                    lambda: train_frontend.main(
+                        ["--model_dir", sys.argv[1], "--vocab", "unused"]),
+                    lambda: eval_frontend.main(
+                        ["--model_dir", sys.argv[1], "--vocab", "unused"]),
+                    lambda: export_frontend.main(
+                        ["--model_dir", sys.argv[1], "--vocab", "unused",
+                         "--out_dir", sys.argv[1]]),
+                    lambda: FrontendTrainer(None, None, None, sys.argv[1]),
+                    lambda: init_distributed("localhost:1", 1, 0),
                     lambda: tts.main(
                         ["--model-dir", sys.argv[1], "--text", "a",
                          "--wav", "unused"])):
@@ -147,4 +168,18 @@ def test_port_imports_no_jax_and_needs_a_gpu(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 55  # every module of the package was imported
+    assert n_modules >= 65  # every module of the package was imported
+
+
+def test_the_ports_embedding_source_imports_only_the_port():
+    """The embedding source the native binaries build from
+    (`utils/native_build.py:embed_engine_source`, `native/src/
+    embed_engine.cc` with the port's module): every `wetts_tpu` module it
+    names is `wetts_tpu_torch.*`, the serving module among them."""
+    import re
+
+    from wetts_tpu_torch.utils.native_build import embed_engine_source
+
+    names = re.findall(r"wetts_tpu[A-Za-z_.]*", embed_engine_source())
+    assert names and all(n.startswith("wetts_tpu_torch.") for n in names)
+    assert "wetts_tpu_torch.serving.embed" in names

@@ -6,7 +6,7 @@ held against the JAX package on the CPU.
   and the port's MCD equal to the JAX tool's on the same WAVs (rtol 1e-6),
   function by function and through both CLIs;
 - text/native: tests/test_native_text.py's four tests on the port's
-  bindings (they skip where native/build/libwetts_text.so is not built),
+  bindings, on the library `utils/native_build.py` builds with g++,
   and the Python fallback, which runs everywhere, equal to the port's and
   the JAX package's Python twins;
 - serving/embed: `init`, `synthesize` and `stream_synthesize` against
@@ -207,9 +207,15 @@ SANDHI_CASES = [
 
 
 @pytest.fixture
-def built():
-    if not native.available():
-        pytest.skip("native library not built")
+def built(monkeypatch):
+    """libwetts_text.so built into the port's build dir and found there."""
+    from wetts_tpu_torch.utils import native_build
+
+    native_build.build("libwetts_text.so")
+    monkeypatch.delenv("WETTS_NATIVE_LIB", raising=False)
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_SEARCHED", False)
+    assert native.available()
 
 
 def test_sentence_segment_parity(built):

@@ -11,7 +11,16 @@ Usage:
 `--slm_model` names a local HuggingFace WavLM directory (`config.json` and
 `pytorch_model.bin` or `model.safetensors`) for the WavLM discriminator of
 a config with `model.use_wd`; bf16 compute is the config's
-`train.bf16_run` (or `fp16_run`). Runs on the GPU and raises without one; `--device cpu` asks for the CPU.
+`train.bf16_run` (or `fp16_run`). Runs on the GPU and raises without one;
+`--device cpu` asks for the CPU.
+
+Data parallelism, one process per GPU (`parallel/mesh.py`): under torchrun,
+    torchrun --nproc_per_node 8 -m wetts_tpu_torch.bin.train_vits \
+        --multihost -c config.json -m exp/v1 ...
+reads RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT; without
+it, start each process with `--multihost --coordinator host:port
+--num_processes N --process_id i`. NCCL on the GPUs, gloo with `--device
+cpu`. `train.batch_size` is per process, as in the reference's DDP.
 """
 
 from __future__ import annotations
@@ -36,6 +45,13 @@ def get_args(argv=None):
                    help="accepted for reference-CLI compatibility")
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed process group (torchrun's "
+                        "environment, or the three flags below)")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port (multihost)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -43,17 +59,33 @@ def main(argv=None):
     args = get_args(argv)
 
     from wetts_tpu_torch.config import Config
+    from wetts_tpu_torch.parallel.mesh import (
+        host_shard_info,
+        init_distributed,
+    )
     from wetts_tpu_torch.train.trainer import Trainer
+
+    device = args.device
+    if args.multihost:
+        device = init_distributed(args.coordinator, args.num_processes,
+                                  args.process_id, device)
 
     cfg = Config.from_json(args.config)
     os.makedirs(args.model_dir, exist_ok=True)
     # copy config into the run dir for reproducibility (task.py:211-216)
-    shutil.copyfile(args.config,
-                    os.path.join(args.model_dir, "config.json"))
+    if host_shard_info()[0] == 0:
+        shutil.copyfile(args.config,
+                        os.path.join(args.model_dir, "config.json"))
     trainer = Trainer(cfg, args.model_dir, args.train_data,
                       args.phone_table, args.speaker_table, args.val_data,
-                      device=args.device, slm_model_dir=args.slm_model)
-    trainer.train(max_steps=args.max_steps)
+                      device=device, slm_model_dir=args.slm_model)
+    step = trainer.train(max_steps=args.max_steps)
+    if args.multihost:
+        print(f"rank {trainer.rank} of {trainer.world}: step {step}, "
+              f"parameters sha1 {trainer.parameter_digest()}", flush=True)
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -240,20 +240,17 @@ class Model:
         return (audio * 32767.0 / peak * 0.6).astype(np.int16)
 
 
-def _load_frontend(fe_dir: str, device=None):
-    """Build the char frontend from a frontend model dir, its scorer on
-    `device`.
-
-    Two layouts: the JAX package's export (config.json + params.npz,
-    wetts_tpu/bin/export_frontend.py) and the reference's released runtime
+def load_frontend_model(fe_dir: str):
+    """The frontend's `FrontendModel` (on the CPU, eval mode) from a
+    frontend model dir in either layout: the JAX package's export
+    (config.json + params.npz, wetts_tpu/bin/export_frontend.py; also a
+    `bin/train_frontend` run dir) or the reference's released runtime
     bundle (final.onnx + vocab.txt + lexicon/, e.g. baker_bert_onnx.tar.gz
     — wetts/cli/frontend.py:22-32), whose initializers are imported
     directly. Both go through the flax tree and `frontend_params_from_jax`.
     """
     import json
 
-    from wetts_tpu_torch.cli.frontend import CharFrontend
-    from wetts_tpu_torch.frontend.scorer import FrontendScorer
     from wetts_tpu_torch.models.bert_frontend import (
         BertConfig,
         FrontendModel,
@@ -282,5 +279,15 @@ def _load_frontend(fe_dir: str, device=None):
                           meta["bert"], meta["transform_heads"],
                           meta["transform_ffn"])
     model.load_state_dict(frontend_params_from_jax(params, meta))
+    return model.eval()
+
+
+def _load_frontend(fe_dir: str, device=None):
+    """The char frontend of a frontend model dir (`load_frontend_model`),
+    its scorer on `device`."""
+    from wetts_tpu_torch.cli.frontend import CharFrontend
+    from wetts_tpu_torch.frontend.scorer import FrontendScorer
+
+    model = load_frontend_model(fe_dir)
     scorer = FrontendScorer(model.to(resolve_device(device)))
     return CharFrontend.from_dir(scorer, fe_dir)

@@ -13,7 +13,8 @@ wanted and by nothing else (never by whether the kernel built or launched):
   stage goes through `mrf.mrf_stage`, which launches kernel K1 on the GPU
   with the folded weights, packed once into the layout the kernel streams
   (`packed_stages`) and packed anew after `eval()`, `.to()` or
-  `load_state_dict`;
+  `load_state_dict`; under `torch.export` each stage is one node of the
+  operator `mrf.mrf_stage_op`, whose GPU kernel is the same launcher;
 - training (`train()` mode, or autograd recording with an input or parameter
   that requires grad): every stage runs `mrf.mrf_stage_reference`, the
   differentiable F.conv1d chain, on kernels computed from
@@ -60,6 +61,7 @@ from wetts_tpu_torch.models.mrf import (
     Branch,
     check_stage,
     mrf_stage,
+    mrf_stage_as_op,
     mrf_stage_int8,
     mrf_stage_reference,
     pack_stage,
@@ -290,11 +292,20 @@ class Generator(nn.Module):
             stages = self.checked_stages()
             packed = (self.packed_stages() if x.is_cuda
                       else [None] * len(stages))
+            # under torch.export the stage is one operator node; else the
+            # launcher, without the operator's host time (models/mrf.py)
+            exporting = torch.compiler.is_exporting()
             for up, stage, pk in zip(self.ups, stages, packed):
                 x = up(F.leaky_relu(x, LRELU_SLOPE))
-                h = mrf_stage(x.transpose(1, 2).contiguous(), stage,
-                              self.resblock, self.kernel_sizes,
-                              self.dilations, checked=True, packed=pk)
+                h = x.transpose(1, 2).contiguous()
+                if exporting:
+                    h = mrf_stage_as_op(h, stage, self.resblock,
+                                        self.kernel_sizes, self.dilations,
+                                        pk)
+                else:
+                    h = mrf_stage(h, stage, self.resblock,
+                                  self.kernel_sizes, self.dilations,
+                                  checked=True, packed=pk)
                 x = h.transpose(1, 2)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)

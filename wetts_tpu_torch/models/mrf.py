@@ -32,6 +32,16 @@ with T the length of the tensor.
   the stage output's for the next upsample (`amax_out`). Residual, branch
   scale and accumulation are the conv's epilogue, as in K1.
   `mrf_stage_int8_reference` is its plain version.
+- `mrf_stage_op` is the same stage registered as the operator
+  `torch.ops.wetts_tpu_torch.mrf_stage` (the launcher on a GPU, the plain
+  version on the CPU, a fake for tracing), so that `torch.export` keeps the
+  stage as one node and an exported decoder launches K1 on the card
+  (`bin/export_graphs.py`); a program that loads such a graph imports this
+  module first. The serving path calls `mrf_stage` itself: the operator's
+  dispatch and flattening cost the host some 0.9 ms more a B = 1 v1
+  decode (four stage calls), 14% of that decode's 6.3 ms of wall time on
+  an H100 host (chip_smoke.py's `export` line,
+  `op_extra_host_us_per_decode` and `v1_live_decode_wall_ms`).
 - `mrf_stage_reference` is the plain PyTorch version, the eager ResBlock
   chain through F.conv1d, and the kernel's oracle on the card. It is also
   the differentiable route: the kernel has no backward (as the TPU kernel
@@ -490,6 +500,79 @@ def mrf_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 mrf_stage.launches = 0
+
+
+# ---- the stage as a registered operator, for graphs that torch.export takes ----
+
+
+def _nested_stage(weights: Sequence[torch.Tensor],
+                  biases: Sequence[torch.Tensor],
+                  kernel_sizes: Sequence[int], dilations: Sequence[int],
+                  dilation_counts: Sequence[int], resblock_kind: str
+                  ) -> Tuple[List[Branch], List[List[int]]]:
+    """The op's flat arguments back as (stage, per-branch dilations)."""
+    stage, dils, i, j = [], [], 0, 0
+    for n in dilation_counts:
+        dils.append(list(dilations[j:j + n]))
+        j += n
+        m = convs_per_branch(resblock_kind, dils[-1])
+        stage.append(list(zip(weights[i:i + m], biases[i:i + m])))
+        i += m
+    return stage, dils
+
+
+@torch.library.custom_op("wetts_tpu_torch::mrf_stage", mutates_args=(),
+                         device_types="cpu")
+def mrf_stage_op(h: torch.Tensor, weights: List[torch.Tensor],
+                 biases: List[torch.Tensor], packed: List[torch.Tensor],
+                 resblock_kind: str, kernel_sizes: List[int],
+                 dilations: List[int], dilation_counts: List[int]
+                 ) -> torch.Tensor:
+    """`mrf_stage` as the operator `torch.ops.wetts_tpu_torch.mrf_stage`,
+    which `torch.export` keeps as one node of a graph (the launcher reads
+    raw pointers, which a traced tensor has none of). The stage is flat:
+    its convs' folded weights and biases in execution order, `packed` their
+    `pack_weight` layouts (K1's, on a GPU; may be empty), the dilations of
+    every branch one after another with their counts per branch. On the
+    CPU it is the plain version; on a GPU the launcher (counted in
+    `mrf_stage.launches`); a fake tensor gets the shape of h."""
+    stage, dils = _nested_stage(weights, biases, kernel_sizes, dilations,
+                                dilation_counts, resblock_kind)
+    return mrf_stage_reference(h, stage, resblock_kind, kernel_sizes,
+                               dils).contiguous()
+
+
+@mrf_stage_op.register_kernel("cuda")
+def _mrf_stage_op_cuda(h, weights, biases, packed, resblock_kind,
+                       kernel_sizes, dilations, dilation_counts):
+    stage, dils = _nested_stage(weights, biases, kernel_sizes, dilations,
+                                dilation_counts, resblock_kind)
+    pk = None
+    if packed:
+        pk = _nested_stage(packed, biases, kernel_sizes, dilations,
+                           dilation_counts, resblock_kind)[0]
+    return mrf_stage(h, stage, resblock_kind, kernel_sizes, dils,
+                     packed=pk)
+
+
+@mrf_stage_op.register_fake
+def _mrf_stage_op_fake(h, weights, biases, packed, resblock_kind,
+                       kernel_sizes, dilations, dilation_counts):
+    return torch.empty_like(h)
+
+
+def mrf_stage_as_op(h: torch.Tensor, stage: Sequence[Branch],
+                    resblock_kind: str, kernel_sizes: Sequence[int],
+                    dilations: Sequence[Sequence[int]],
+                    packed: Optional[Sequence[Branch]] = None
+                    ) -> torch.Tensor:
+    """`mrf_stage(h, stage, ..., packed=packed)` through `mrf_stage_op`."""
+    convs = [wb for branch in stage for wb in branch]
+    return mrf_stage_op(
+        h, [w for w, _ in convs], [b for _, b in convs],
+        [w for branch in packed or () for w, _ in branch], resblock_kind,
+        list(kernel_sizes), [d for ds in dilations for d in ds],
+        [len(ds) for ds in dilations])
 
 
 # one branch of the int8 stage: its QuantConv1d objects in execution order

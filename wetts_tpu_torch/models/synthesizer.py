@@ -18,7 +18,9 @@ The VITS2 options of the config build what the JAX package builds: the
 transformer flows (`use_transformer_flows`, `transformer_flow_type`), the
 speaker-conditioned text encoder (`use_spk_conditioned_encoder`) and the
 Vocos decoder (`vocoder_type="vocos"`), and train with noise-scaled MAS
-(`use_noise_scaled_mas`).
+(`use_noise_scaled_mas`). Inside a data-parallel step the MAS noise's std
+and the duration loss's phone count are those of the global batch
+(`parallel/mesh.py`), as the JAX step's over its sharded batch.
 
 The public functions keep the JAX package's layout: phone ids [B, T_text],
 latents and masks [B, T, C], the speaker vector g [B, 1, gin], audio
@@ -54,6 +56,7 @@ from wetts_tpu_torch.models.hifigan import Generator
 from wetts_tpu_torch.models.vocos import VocosGenerator
 from wetts_tpu_torch.ops import random
 from wetts_tpu_torch.ops.mas import maximum_path
+from wetts_tpu_torch.parallel.mesh import global_std, global_sum
 from wetts_tpu_torch.ops.masking import (
     generate_path,
     rand_slice_segments,
@@ -186,22 +189,25 @@ class Synthesizer(nn.Module):
                 noise = random.normal(
                     (neg_cent.shape[0], neg_cent.shape[2], neg_cent.shape[1]),
                     neg_cent.device, neg_cent.dtype, generator)
-                neg_cent = neg_cent + (torch.std(neg_cent, correction=0)
+                neg_cent = neg_cent + (global_std(neg_cent)
                                        * _bct(noise) * mas_noise_scale)
             attn_mask = _bct(y_mask) * x_mask  # [B, T_spec, T_text]
             attn = maximum_path(neg_cent, attn_mask)
 
         w = attn.sum(dim=1)[:, None, :]  # [B, 1, T_text]
         logw_ = torch.log(w + 1e-6) * x_mask
+        # the phones of the whole batch (of the global batch inside a
+        # data-parallel step, as the std above)
+        n_text = global_sum(torch.sum(x_mask))
         if self.use_sdp:
             l_length = self.dp.nll(x_h, x_mask, w, g=g_in,
-                                   generator=generator) / torch.sum(x_mask)
+                                   generator=generator) / n_text
             logw = self.dp(x_h, x_mask, g=g_in, noise_scale=1.0,
                            generator=generator)
         else:
             logw = self.dp(x_h, x_mask, g=g_in, generator=generator)
             l_length = torch.sum((logw - logw_) ** 2,
-                                 dim=(1, 2)) / torch.sum(x_mask)
+                                 dim=(1, 2)) / n_text
 
         # expand the prior over spec frames (reference :209-212)
         m_p_e = torch.matmul(attn, _bct(m_p))  # [B, T_spec, C]

@@ -6,7 +6,10 @@ runtime/core/frontend C++ stack) and falls back to the port's pure-Python
 twins in wetts_tpu_torch.text when the library isn't built. Both are
 behaviorally identical (tests/test_torch_mcd.py cross-checks them).
 
-Build: cmake -B native/build native && cmake --build native/build
+Build: `wetts_tpu_torch.utils.native_build.build("libwetts_text.so")`
+(into wetts_tpu_torch/_build/native/, with g++), or cmake -B native/build
+native && cmake --build native/build; the first found of
+$WETTS_NATIVE_LIB, the port's build and native/build is loaded.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ def _find_library() -> Optional[ctypes.CDLL]:
         os.path.abspath(__file__))))
     candidates = [
         os.environ.get("WETTS_NATIVE_LIB", ""),
+        os.path.join(here, "wetts_tpu_torch", "_build", "native",
+                     "libwetts_text.so"),
         os.path.join(here, "native", "build", "libwetts_text.so"),
     ]
     for path in candidates:

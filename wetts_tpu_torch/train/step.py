@@ -33,6 +33,18 @@ f32: the spectrograms (`ops/spectral.py`), MAS's scores
 (`Synthesizer.forward`), the losses, and the frozen WavLM with its
 resample. Each phase enters autocast on its own, so that no bf16 copy of a
 weight cached by autocast outlives an optimiser step.
+
+In a process group (`parallel/mesh.py`) the step is data-parallel and
+computes what the JAX step computes over its sharded global batch, not the
+mean of per-rank losses, since several losses divide by a mask sum that
+differs between ranks. Each rank computes its share of the global loss:
+means over the batch's rows divided by the world size, mask-normalised
+sums (the KL, the duration loss) over the global mask sum, plain sums as
+they are; the draws and the MAS noise's std are the global batch's. After
+each backward the net's gradients are summed over the ranks (one
+all-reduce per optimiser), so the gradient norms and the step see the
+global gradient, and the metrics are the shares summed. At world 1 this
+is the step without a process group.
 """
 
 from __future__ import annotations
@@ -60,6 +72,13 @@ from wetts_tpu_torch.ops.spectral import (
     mel_spectrogram,
     spec_to_mel,
     spectrogram,
+)
+from wetts_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    check_same_shapes,
+    host_shard_info,
+    is_distributed,
+    sharded,
 )
 from wetts_tpu_torch.train.losses import (
     discriminator_loss,
@@ -220,6 +239,11 @@ def half_precision(cfg: Config) -> bool:
     return cfg.train.bf16_run or cfg.train.fp16_run
 
 
+# the metrics that are shares of a loss, summed over the ranks of a
+# data-parallel step (the noise scale and the gradient norms are global)
+_NOT_SHARES = ("train/mas_noise_scale", "grad_norm/g", "grad_norm/d")
+
+
 def train_step(cfg: Config, state: GANTrainState, batch: Batch,
                generator: Optional[torch.Generator] = None,
                mark: Optional[Callable[[str], None]] = None,
@@ -230,7 +254,9 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     host).
 
     batch: phone_ids [B, T_text], text_lengths [B], wav [B, T_spec * hop],
-    spec_lengths [B], sid [B], all on the models' device.
+    spec_lengths [B], sid [B], all on the models' device; in a process
+    group, this rank's rows of the global batch (every rank with the same
+    shapes, checked, and `generator` at the same state).
     mark: called with "g_forward", "d_update", "dur_d_update" (where the
     state has a duration discriminator), "wd_update" (where the WavLM
     branch runs) and "g_update" as each phase has been enqueued, for a
@@ -240,6 +266,30 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     branch runs where the state has `net_wd` and this is given, as in the
     JAX step.
     """
+    if not is_distributed():
+        return _step(cfg, state, batch, generator, mark, slm_feature_fn,
+                     1, lambda params: None)
+    rank, world = host_shard_info()
+    if world > 1:
+        check_same_shapes(batch)
+    with sharded(rank, world):
+        metrics = _step(cfg, state, batch, generator, mark, slm_feature_fn,
+                        world, all_reduce_grads)
+    shares = [k for k in metrics if k not in _NOT_SHARES]
+    total = torch.stack([metrics[k] for k in shares])
+    torch.distributed.all_reduce(total)
+    metrics.update(zip(shares, total.unbind()))
+    return metrics
+
+
+def _step(cfg: Config, state: GANTrainState, batch: Batch,
+          generator: Optional[torch.Generator],
+          mark: Optional[Callable[[str], None]],
+          slm_feature_fn: Optional[Callable], world: int,
+          reduce: Callable) -> Dict[str, torch.Tensor]:
+    """`train_step` on this rank's rows: the loss terms that are means over
+    the rows are divided by `world` (an exact identity at 1), and
+    `reduce(params)` sums a net's gradients over the ranks."""
     d, t = cfg.data, cfg.train
     net_g, net_d = state.net_g, state.net_d
     net_dur_d, net_wd = state.net_dur_d, state.net_wd
@@ -247,6 +297,12 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     for _, net, _ in state.nets():
         net.train()
     mark = mark or (lambda name: None)
+    if world == 1:
+        def share(v):
+            return v
+    else:
+        def share(v):
+            return v / world
     wav = batch["wav"]
     if half_precision(cfg):
         def amp():
@@ -273,8 +329,10 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     with amp():
         y_d_r, y_d_g, _, _ = net_d(y_slice, y_hat.detach())
         loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
+        loss_disc = share(loss_disc)
     state.opt_d.zero_grad(set_to_none=True)
     loss_disc.backward()
+    reduce(net_d.parameters())
     grad_norm_d = _global_norm(net_d.parameters())
     state.opt_d.step()
     mark("d_update")
@@ -284,8 +342,10 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
         with amp():
             probs = net_dur_d(*(out[k].detach() for k in DURATION_INPUTS))
             loss_dur_disc, _, _ = discriminator_loss([probs[0]], [probs[1]])
+            loss_dur_disc = share(loss_dur_disc)
         state.opt_dur_d.zero_grad(set_to_none=True)
         loss_dur_disc.backward()
+        reduce(net_dur_d.parameters())
         state.opt_dur_d.step()
         metrics["loss/dur_disc"] = loss_dur_disc.detach()
         mark("dur_d_update")
@@ -298,8 +358,10 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
         with amp():
             loss_slm, _, _ = discriminator_loss([net_wd(f_real)],
                                                 [net_wd(f_fake.detach())])
+            loss_slm = share(loss_slm)
         state.opt_wd.zero_grad(set_to_none=True)
         loss_slm.backward()
+        reduce(net_wd.parameters())
         state.opt_wd.step()
         metrics["loss/slm_disc"] = loss_slm.detach()
         mark("wd_update")
@@ -308,26 +370,28 @@ def train_step(cfg: Config, state: GANTrainState, batch: Batch,
     y_mel, y_hat_mel = _mel_pair(cfg, spec, out)
     with amp():
         y_d_r, y_d_g, fmap_r, fmap_g = _frozen(net_d, y_slice, y_hat)
+        # sums of per-row terms over the global mask sum: shares already
         loss_dur = torch.sum(out["l_length"].float())
-        loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * t.c_mel
+        loss_mel = share(torch.mean(torch.abs(y_mel - y_hat_mel)) * t.c_mel)
         loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"],
                           out["logs_p"], out["y_mask"]) * t.c_kl
-        loss_fm = feature_loss(fmap_r, fmap_g)
-        loss_gen, _ = generator_loss(y_d_g)
+        loss_fm = share(feature_loss(fmap_r, fmap_g))
+        loss_gen = share(generator_loss(y_d_g)[0])
         total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
         if net_dur_d is not None:
             probs = _frozen(net_dur_d, *(out[k] for k in DURATION_INPUTS))
-            loss_dur_gen, _ = generator_loss([probs[1]])
+            loss_dur_gen = share(generator_loss([probs[1]])[0])
             total = total + loss_dur_gen
             metrics["loss/dur_gen"] = loss_dur_gen.detach()
         if use_wd:
-            loss_lm = torch.mean(torch.abs(f_real - f_fake))
-            loss_lm_gen, _ = generator_loss([_frozen(net_wd, f_fake)])
+            loss_lm = share(torch.mean(torch.abs(f_real - f_fake)))
+            loss_lm_gen = share(generator_loss([_frozen(net_wd, f_fake)])[0])
             total = total + loss_lm + loss_lm_gen
             metrics["loss/slm_feat"] = loss_lm.detach()
             metrics["loss/slm_gen"] = loss_lm_gen.detach()
     state.opt_g.zero_grad(set_to_none=True)
     total.backward()
+    reduce(net_g.parameters())
     grad_norm_g = _global_norm(net_g.parameters())
     state.opt_g.step()
     state.step += 1

@@ -13,9 +13,19 @@ wetts/vits/train.py:37-346):
   HuggingFace model directory (`slm_model_dir`), and a tolerant resume
   (`train/checkpoint.py`).
 
-One process, one device: the data-parallel mesh of the JAX trainer is not
-ported yet. The trainer runs on the GPU and raises without one unless the
-caller passes `device="cpu"`.
+One process drives one device. In a process group (`parallel/mesh.py`,
+`bin/train_vits.py --multihost` or torchrun) the trainer is data-parallel,
+as the JAX trainer over its mesh: each rank takes its strided share of
+every bucket (`BucketBatcher(num_replicas=world, rank=rank)`), its text
+padded to the widest rank's, so that every rank's batch has the same
+shapes (the sampler pads to a multiple of 16 of each rank's own longest
+row; the frames are the bucket's on every rank), every rank
+starts from rank 0's parameters and optimiser state (broadcast after init
+and after the resume, which every rank reads from the same file), and
+`train_step` sums the gradients over the ranks. Rank 0 alone logs, writes
+`metrics.jsonl` and TensorBoard, evaluates and writes the checkpoints; the
+others wait for it at a barrier after each save. The trainer runs on the
+GPU and raises without one unless the caller passes `device="cpu"`.
 
 One divergence is kept on purpose: the JAX trainer's `_log_eval_media`
 catches every exception and logs a warning; here only a TensorBoard writer
@@ -25,13 +35,17 @@ the media decode on the device raises.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import logging
 import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from wetts_tpu_torch.config import Config
 from wetts_tpu_torch.data.dataset import TTSDataset, read_table
@@ -42,6 +56,12 @@ from wetts_tpu_torch.models.wavlm import (
     make_slm_feature_fn,
 )
 from wetts_tpu_torch.ops.spectral import mel_spectrogram
+from wetts_tpu_torch.parallel.mesh import (
+    global_max,
+    host_shard_info,
+    is_distributed,
+    replicate,
+)
 from wetts_tpu_torch.train import checkpoint as ckpt
 from wetts_tpu_torch.train.state import GANTrainState, epoch_lr
 from wetts_tpu_torch.train.step import (
@@ -62,18 +82,20 @@ from wetts_tpu_torch.utils.summary import (
 MEDIA_SCALES = (0.667, 1.0, 0.8)
 
 
-def get_logger(model_dir: str) -> logging.Logger:
+def get_logger(model_dir: str, rank: int = 0) -> logging.Logger:
     """A logger of its own per model directory, writing `train.log` there
-    and echoing to the console."""
+    and echoing to the console; another rank's only echoes its warnings."""
     os.makedirs(model_dir, exist_ok=True)
     logger = logging.getLogger(
-        f"wetts_tpu_torch.train.{os.path.abspath(model_dir)}")
-    logger.setLevel(logging.INFO)
+        f"wetts_tpu_torch.train.{os.path.abspath(model_dir)}"
+        + (f".rank{rank}" if rank else ""))
+    logger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     if not logger.handlers:
-        fh = logging.FileHandler(os.path.join(model_dir, "train.log"))
-        fh.setFormatter(logging.Formatter(
-            "%(asctime)s %(levelname)s %(message)s"))
-        logger.addHandler(fh)
+        if rank == 0:
+            fh = logging.FileHandler(os.path.join(model_dir, "train.log"))
+            fh.setFormatter(logging.Formatter(
+                "%(asctime)s %(levelname)s %(message)s"))
+            logger.addHandler(fh)
         logger.addHandler(logging.StreamHandler())
     return logger
 
@@ -94,8 +116,10 @@ class Trainer:
         """summary: where scalars and eval media go (an object with
         `scalars`, `image`, `audio` and `flush`, as `utils.summary.Summary`);
         None makes a `Summary` under `<model_dir>/tb`, or none, with a
-        warning, where no TensorBoard writer can be made."""
+        warning, where no TensorBoard writer can be made. Ranks other than
+        0 of a process group keep none."""
         self.device = resolve_device(device)
+        self.rank, self.world = host_shard_info()
         phone_table = read_table(phone_table_path)
         speaker_table = (read_table(speaker_table_path)
                          if speaker_table_path else None)
@@ -105,11 +129,12 @@ class Trainer:
                                    max(speaker_table.values()) + 1)
         self.cfg = cfg
         self.model_dir = model_dir
-        self.logger = get_logger(model_dir)
+        self.logger = get_logger(model_dir, self.rank)
         self.metrics_path = os.path.join(model_dir, "metrics.jsonl")
-        # TensorBoard scalars, images and audio (reference train.py:509-581)
-        self.summary = summary
-        if summary is None:
+        # TensorBoard scalars, images and audio on rank 0 (reference
+        # train.py:509-581)
+        self.summary = summary if self.rank == 0 else None
+        if summary is None and self.rank == 0:
             try:
                 self.summary = Summary(os.path.join(model_dir, "tb"))
             except ImportError as e:
@@ -117,8 +142,9 @@ class Trainer:
 
         self.dataset = TTSDataset(train_manifest, phone_table, speaker_table,
                                   cfg.data)
-        self.batcher = BucketBatcher(self.dataset, cfg.train.batch_size,
-                                     seed=cfg.train.seed)
+        self.batcher = BucketBatcher(
+            self.dataset, cfg.train.batch_size, num_replicas=self.world,
+            rank=self.rank, seed=cfg.train.seed)
         self.val_dataset = (
             TTSDataset(val_manifest, phone_table, speaker_table, cfg.data)
             if val_manifest else None)
@@ -144,10 +170,17 @@ class Trainer:
         self.state = GANTrainState.create(cfg, put(net_g), put(net_d),
                                           put(net_dur_d), put(net_wd))
         ckpt.load_checkpoint(model_dir, self.state)
+        nets = list(self.state.nets())
+        replicate([net for _, net, _ in nets], [opt for _, _, opt in nets])
         self.start_step = self.state.step
-        # draws continue from a stream of their own after a resume
+        # draws continue from a stream of their own after a resume; every
+        # rank holds the same stream (and, in a process group, the same
+        # default generator, which the duration discriminator's dropout
+        # draws from)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + self.start_step)
+        if is_distributed():
+            torch.manual_seed(cfg.train.seed + self.start_step)
 
     def _load_slm(self, slm_model_dir: str):
         """The frozen WavLM's feature function, from a local HuggingFace
@@ -198,7 +231,21 @@ class Trainer:
             "sid": put(batch.sid, torch.long),
         }
 
+    @staticmethod
+    def _pad_text_globally(batch: Batch) -> Batch:
+        """The batch with its text padded to the widest rank's: each rank
+        pads to a multiple of 16 of its own longest row, and the ranks of
+        a data-parallel step need the same shapes."""
+        width = batch.phone_ids.shape[1]
+        (wanted,) = global_max([width])
+        if wanted == width:
+            return batch
+        return dataclasses.replace(batch, phone_ids=np.pad(
+            batch.phone_ids, ((0, 0), (0, wanted - width))))
+
     def _log_metrics(self, step: int, metrics: Dict, epoch: int, sps: float):
+        if self.rank != 0:  # rank-0 logging (reference train.py:509)
+            return
         rec = {"step": step, "epoch": epoch, "steps_per_s": round(sps, 3)}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self.metrics_path, "a") as f:
@@ -220,6 +267,8 @@ class Trainer:
         for epoch in range(start_epoch, cfg.train.epochs + 1):
             self.state.set_learning_rate(epoch_lr(cfg, epoch))
             for batch in self.batcher(epoch):
+                if self.world > 1:
+                    batch = self._pad_text_globally(batch)
                 metrics = train_step(cfg, self.state, self._feed(batch),
                                      self.generator,
                                      slm_feature_fn=self.slm_feature_fn)
@@ -242,8 +291,10 @@ class Trainer:
 
     def evaluate(self, step: int, epoch: int, max_batches: int = 8):
         """Validation losses on the val manifest (reference
-        train.py:624-693), averaged over at most `max_batches` batches."""
-        if self.val_dataset is None or len(self.val_dataset) == 0:
+        train.py:624-693), averaged over at most `max_batches` batches; on
+        rank 0 only."""
+        if (self.rank != 0 or self.val_dataset is None
+                or len(self.val_dataset) == 0):
             return
         if self._val_batcher is None:
             self._val_batcher = BucketBatcher(
@@ -305,8 +356,22 @@ class Trainer:
         self.summary.flush()
 
     def save(self, step: int):
-        """A checkpoint at `step`; the summary's events reach disk too."""
-        ckpt.save_checkpoint(self.model_dir, self.state, step)
-        if self.summary is not None:
-            self.summary.flush()
-        self.logger.info("saved checkpoint at step %d", step)
+        """A checkpoint at `step`, written by rank 0 while the other ranks
+        wait; the summary's events reach disk too."""
+        if self.rank == 0:
+            ckpt.save_checkpoint(self.model_dir, self.state, step)
+            if self.summary is not None:
+                self.summary.flush()
+            self.logger.info("saved checkpoint at step %d", step)
+        if self.world > 1:
+            dist.barrier()
+
+    def parameter_digest(self) -> str:
+        """sha1 of every network's parameters and buffers, in order: equal
+        on every rank of a data-parallel run."""
+        h = hashlib.sha1()
+        for _, net, _ in self.state.nets():
+            for t in net.state_dict().values():
+                h.update(t.detach().cpu().contiguous().view(-1)
+                         .view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
