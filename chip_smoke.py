@@ -2064,7 +2064,7 @@ def phase_streaming(cfg, card: str, fe):
                                    time.perf_counter() - t0))
         launches = {k: fn.launches for k, fn in counters.items()}
         stages = engine.stage_times.report()
-        decodes = stages["decode_chunk"]["n"]
+        decodes = stages["chunk_wait"]["n"]
         scorer_ms = list(scorer.ms)
         check_launches(f"stream {name}", launches, m, name, decodes)
         tol = 2e-4 if name == "f32" else 3e-2

@@ -311,7 +311,7 @@ class SynthesisEngine:
         """Wait for each decoded stack in turn and yield its chunks, each
         trimmed to its own span."""
         for chunks, (host, done) in pending:
-            with self.stage_times.stage("decode_chunk"):
+            with self.stage_times.stage("chunk_wait"):
                 if done is not None:
                     done.synchronize()
                 audio = host.numpy()

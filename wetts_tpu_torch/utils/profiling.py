@@ -6,7 +6,10 @@ SynthesizerTrn.infer (wetts/vits/model/models.py:242-279) and a C++ Timer
 used by the HTTP server (runtime/core/utils/timer.h). `StageTimes`
 accumulates named host-clock durations so p50/p99 can be reported. On the
 GPU a stage's time is only the device's if the stage ends in a device sync;
-the engine's stages do.
+the engine's batch stages do. While torch.profiler records, each stage is
+also the user annotation `wetts.<name>` on the profiler's timeline, which
+the device's operations share, so a trace can say how long the device
+worked and sat idle inside each stage.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from collections import defaultdict, deque
 from typing import Callable, Deque, Dict, Iterator
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 # a sleep of some 30 ms at the H100's clocks, behind which `device_ms` queues
 # its launches
@@ -29,25 +33,39 @@ MAX_OBSERVATIONS = 4096
 
 
 class StageTimes:
-    """Named per-stage duration accumulator (all observations, bounded)."""
+    """Named per-stage duration accumulator: the count and total of every
+    observation since `reset()`, the percentiles over the last `maxlen`."""
 
     def __init__(self, maxlen: int = MAX_OBSERVATIONS):
         self._times: Dict[str, Deque[float]] = defaultdict(
             lambda: deque(maxlen=maxlen))
+        self._n: Dict[str, int] = defaultdict(int)
+        self._total: Dict[str, float] = defaultdict(float)
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
+        # while nothing records, the span costs one check of this flag
+        span = None
+        if autograd_profiler._is_profiler_enabled:
+            span = torch.profiler.record_function(f"wetts.{name}")
+            span.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self._times[name].append(time.perf_counter() - t0)
+            self.add(name, time.perf_counter() - t0)
+            if span is not None:
+                span.__exit__(None, None, None)
 
     def add(self, name: str, seconds: float) -> None:
         self._times[name].append(seconds)
+        self._n[name] += 1
+        self._total[name] += seconds
 
     def reset(self) -> None:
         self._times.clear()
+        self._n.clear()
+        self._total.clear()
 
     def percentile(self, name: str, q: float) -> float:
         xs = sorted(self._times.get(name, ()))
@@ -58,11 +76,12 @@ class StageTimes:
 
     def report(self) -> Dict[str, Dict[str, float]]:
         out = {}
-        for name, xs in self._times.items():
+        for name in self._times:
+            n, total = self._n[name], self._total[name]
             out[name] = {
-                "n": len(xs),
-                "total_s": sum(xs),
-                "mean_ms": 1e3 * sum(xs) / len(xs),
+                "n": n,
+                "total_s": total,
+                "mean_ms": 1e3 * total / n,
                 "p50_ms": 1e3 * self.percentile(name, 50),
                 "p99_ms": 1e3 * self.percentile(name, 99),
             }
