@@ -49,6 +49,12 @@ def supplied(draws: Sequence[torch.Tensor]):
         _SUPPLY = saved
 
 
+def from_generator() -> bool:
+    """True where every draw comes from the caller's generator alone, as it
+    is asked for: outside `supplied` and outside a data-parallel step."""
+    return _SUPPLY is None and current_shard()[1] == 1
+
+
 def _draw(fn: Callable, shape: Sequence[int], device, dtype,
           generator: Optional[torch.Generator]) -> torch.Tensor:
     shape = tuple(shape)
