@@ -62,6 +62,7 @@ from wetts_tpu_torch.ops.masking import (
     rand_slice_segments,
     sequence_mask,
 )
+from wetts_tpu_torch.utils.profiling import StageTimes
 
 
 def _bct(x: torch.Tensor) -> torch.Tensor:
@@ -287,13 +288,18 @@ class Synthesizer(nn.Module):
         return (self.flow_reverse(z_p, y_mask, g, precision), y_lengths,
                 y_mask, attn, g)
 
-    def decode(self, z, g=None, sid=None, precision: str = "f32"):
+    def decode(self, z, g=None, sid=None, precision: str = "f32",
+               stages: Optional[StageTimes] = None):
         """Latent z [B, T, C] -> waveform [B, T * hop, 1] in f32
-        (:360-363), the decoder at `precision`."""
+        (:360-363), the decoder at `precision`. Given `stages`, the Vocos
+        decoder times its backbone and iSTFT into it (HiFi-GAN's decode
+        has no stages of its own)."""
         if g is None:
             g = self._speaker(sid)
+        timed = ({"stages": stages} if stages is not None
+                 and isinstance(self.dec, VocosGenerator) else {})
         o = self.dec(_bct(z), g=None if g is None else _bct(g),
-                     precision=precision)
+                     precision=precision, **timed)
         return _bct(o)
 
     def infer(self, x, x_lengths, sid=None, noise_scale=1.0,

@@ -6,11 +6,14 @@ pointwise conv, a per-channel layer scale initialised to 1/N, residual) ->
 LayerNorm -> 1x1 out_conv to log-magnitude and phase -> exp clamped at 1e2
 -> iSTFT (ops/spectral.py). Activations are [B, C, T]; a latent of T frames
 gives T * hop samples. It runs in f32 only: the decoder has no reduced
-route, and asking for one raises.
+route, and asking for one raises. Given a StageTimes, the backbone (the
+in_conv to the out_conv) and the iSTFT (magnitude and phase on) are its
+device stages `vocos` and `istft`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -19,6 +22,7 @@ from torch import nn
 
 from wetts_tpu_torch.models.layers import Conv1d, LayerNorm
 from wetts_tpu_torch.ops.spectral import istft
+from wetts_tpu_torch.utils.profiling import StageTimes
 
 
 class ConvNeXtLayer(nn.Module):
@@ -55,21 +59,29 @@ class VocosGenerator(nn.Module):
         self.out_conv = Conv1d(channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
-                precision: str = "f32") -> torch.Tensor:
+                precision: str = "f32",
+                stages: Optional[StageTimes] = None) -> torch.Tensor:
         """x [B, C, T] latent, g [B, gin, 1] or None -> [B, 1, T * hop]."""
         if precision != "f32":
             raise ValueError(f"the Vocos decoder runs in f32 only, not "
                              f"{precision!r}")
-        x = self.in_conv(F.pad(x, (1, 0), mode="reflect"))
-        if g is not None and hasattr(self, "cond"):
-            x = x + self.cond(g)
-        x = self.norm_pre(x)
-        for layer in self.layers:
-            x = layer(x)
-        x = self.out_conv(self.norm_post(x))
-        log_mag, phase = torch.chunk(x, 2, dim=1)
-        mag = torch.clamp(torch.exp(log_mag), max=1e2)
-        audio = istft((mag * torch.cos(phase)).transpose(1, 2),
-                      (mag * torch.sin(phase)).transpose(1, 2),
-                      *self.istft_args)
+
+        def stage(name):
+            return (contextlib.nullcontext() if stages is None
+                    else stages.device_stage(name, x.device))
+
+        with stage("vocos"):
+            x = self.in_conv(F.pad(x, (1, 0), mode="reflect"))
+            if g is not None and hasattr(self, "cond"):
+                x = x + self.cond(g)
+            x = self.norm_pre(x)
+            for layer in self.layers:
+                x = layer(x)
+            x = self.out_conv(self.norm_post(x))
+        with stage("istft"):
+            log_mag, phase = torch.chunk(x, 2, dim=1)
+            mag = torch.clamp(torch.exp(log_mag), max=1e2)
+            audio = istft((mag * torch.cos(phase)).transpose(1, 2),
+                          (mag * torch.sin(phase)).transpose(1, 2),
+                          *self.istft_args)
         return audio[:, None, :]

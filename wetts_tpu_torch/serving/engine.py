@@ -236,9 +236,19 @@ class SynthesisEngine:
                 return out
             z, y_len, g = self._encode_flow(ids_list, sids)
             with torch.inference_mode(), self.stage_times.stage("decode"):
-                audio = self.model.decode(
-                    z, g, precision=self.precision)[:, :, 0].cpu().numpy()
+                audio = self._decode(z, g)[:, :, 0].cpu().numpy()
             return [audio[i, : int(y_len[i]) * self.hop] for i in range(n)]
+
+    def _decode(self, z: torch.Tensor, g: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+        """The decoder over z [rows, frames, C], counted in `stage_times`
+        (`decode_rows`, and `decode_frames`: rows x frames), which the
+        Vocos decoder also times its backbone and iSTFT into."""
+        rows, frames = z.shape[:2]
+        self.stage_times.count("decode_rows", rows)
+        self.stage_times.count("decode_frames", rows * frames)
+        return self.model.decode(z, g, precision=self.precision,
+                                 stages=self.stage_times)
 
     def _graphs_apply(self) -> bool:
         """Whether the encode and the flow may replay CUDA graphs: on a
@@ -417,9 +427,8 @@ class SynthesisEngine:
         r = torch.tensor(rows, dtype=torch.long, device=dev)
         i = torch.from_numpy(np.stack(idx)).to(dev, torch.long)
         with torch.inference_mode():
-            audio = self.model.decode(
-                z[r[:, None], i], None if g is None else g[r],
-                precision=self.precision)[:, :, 0]
+            audio = self._decode(z[r[:, None], i],
+                                 None if g is None else g[r])[:, :, 0]
             if dev.type != "cuda":
                 return audio, None
             host = audio.to("cpu", non_blocking=True)

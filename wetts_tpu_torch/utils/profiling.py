@@ -6,7 +6,9 @@ SynthesizerTrn.infer (wetts/vits/model/models.py:242-279) and a C++ Timer
 used by the HTTP server (runtime/core/utils/timer.h). `StageTimes`
 accumulates named host-clock durations so p50/p99 can be reported. On the
 GPU a stage's time is only the device's if the stage ends in a device sync;
-the engine's batch stages do. While torch.profiler records, each stage is
+the engine's batch stages do. A `device_stage` is timed on the device
+instead, between two CUDA events, with no sync of its own. Named counters
+are reported beside the stages. While torch.profiler records, each stage is
 also the user annotation `wetts.<name>` on the profiler's timeline, which
 the device's operations share, so a trace can say how long the device
 worked and sat idle inside each stage.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict, deque
-from typing import Callable, Deque, Dict, Iterator
+from typing import Callable, Deque, Dict, Iterator, List, Tuple
 
 import torch
 from torch.autograd import profiler as autograd_profiler
@@ -34,13 +36,20 @@ MAX_OBSERVATIONS = 4096
 
 class StageTimes:
     """Named per-stage duration accumulator: the count and total of every
-    observation since `reset()`, the percentiles over the last `maxlen`."""
+    observation since `reset()`, the percentiles over the last `maxlen`;
+    and named counters, the count and sum of what was counted since
+    `reset()`."""
 
     def __init__(self, maxlen: int = MAX_OBSERVATIONS):
         self._times: Dict[str, Deque[float]] = defaultdict(
             lambda: deque(maxlen=maxlen))
         self._n: Dict[str, int] = defaultdict(int)
         self._total: Dict[str, float] = defaultdict(float)
+        self._count_n: Dict[str, int] = defaultdict(int)
+        self._count: Dict[str, int] = defaultdict(int)
+        # (stage, start event, end event) of device stages not yet added
+        self._pending: List[Tuple[str, torch.cuda.Event,
+                                  torch.cuda.Event]] = []
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -57,6 +66,52 @@ class StageTimes:
             if span is not None:
                 span.__exit__(None, None, None)
 
+    @contextlib.contextmanager
+    def device_stage(self, name: str, device: torch.device
+                     ) -> Iterator[None]:
+        """A stage timed on the device where `device` is a CUDA device: an
+        event recorded on the current stream where it opens and another
+        where it closes. The stage adds no sync: their elapsed time is
+        added once the closing event has completed, as a later sync of the
+        caller's makes it (`report()` and the next device stage look).
+        Elsewhere a host-clock `stage`."""
+        if device.type != "cuda":
+            with self.stage(name):
+                yield
+            return
+        self._add_completed()
+        span = None
+        if autograd_profiler._is_profiler_enabled:
+            span = torch.profiler.record_function(f"wetts.{name}")
+            span.__enter__()
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self._pending.append((name, start, end))
+            if span is not None:
+                span.__exit__(None, None, None)
+
+    def _add_completed(self) -> None:
+        """Add each pending device stage whose closing event has
+        completed."""
+        waiting = []
+        for name, start, end in self._pending:
+            if end.query():
+                self.add(name, 1e-3 * start.elapsed_time(end))
+            else:
+                waiting.append((name, start, end))
+        self._pending = waiting
+
+    def count(self, name: str, value: int) -> None:
+        """Add `value` to the counter `name` (a name no stage has)."""
+        self._count_n[name] += 1
+        self._count[name] += value
+
     def add(self, name: str, seconds: float) -> None:
         self._times[name].append(seconds)
         self._n[name] += 1
@@ -66,6 +121,9 @@ class StageTimes:
         self._times.clear()
         self._n.clear()
         self._total.clear()
+        self._count_n.clear()
+        self._count.clear()
+        self._pending = []
 
     def percentile(self, name: str, q: float) -> float:
         xs = sorted(self._times.get(name, ()))
@@ -75,6 +133,12 @@ class StageTimes:
         return xs[idx]
 
     def report(self) -> Dict[str, Dict[str, float]]:
+        """Per stage its count `n`, `total_s`, `mean_ms`, `p50_ms` and
+        `p99_ms`; per counter `n` (how often it was counted) and `count`
+        (the sum counted), with the stage keys' times at 0, so that a
+        reader of every entry's times reads counters as stages that took
+        none."""
+        self._add_completed()
         out = {}
         for name in self._times:
             n, total = self._n[name], self._total[name]
@@ -85,11 +149,15 @@ class StageTimes:
                 "p50_ms": 1e3 * self.percentile(name, 50),
                 "p99_ms": 1e3 * self.percentile(name, 99),
             }
+        for name, n in self._count_n.items():
+            out[name] = {"n": n, "count": self._count[name], "total_s": 0.0,
+                         "mean_ms": 0.0, "p50_ms": 0.0, "p99_ms": 0.0}
         return out
 
     def summary(self) -> str:
         return "  ".join(
-            f"{k}: {v['mean_ms']:.1f}ms(x{v['n']})"
+            f"{k}: {v['count']}(x{v['n']})" if "count" in v
+            else f"{k}: {v['mean_ms']:.1f}ms(x{v['n']})"
             for k, v in sorted(self.report().items()))
 
 
