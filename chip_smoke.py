@@ -69,8 +69,14 @@ Phases, each of which must pass (any failure exits non-zero):
    bert-base-wide scorer on the card) and both streaming paths at each
    precision, then `/stream` and a burst of batched `/` requests
    (`phase_streaming`);
-8. VITS2 (`phase_vits2`): examples/baker/configs/vits2_vocos_v1.json at
-   full width (transformer flows, the Vocos decoder with its iSTFT) against
+8. hold VB's kernels (`phase_vocos_kernels`: the Vocos backbone's 18
+   split-TF32 GEMMs and 10 row launches) against float64 at the batch
+   cell's 8 rows of 1152 latent frames, the GEMMs within a tolerance a
+   single TF32 pass fails, and time them beside their plain versions and
+   the module path's cuDNN convs; then VITS2 (`phase_vits2`):
+   examples/baker/configs/vits2_vocos_v1.json at
+   full width (transformer flows, the Vocos decoder with its iSTFT; its
+   backbone on `csrc/vocos_backbone.cu`, the CPU's on its modules) against
    the CPU engine, batches of 4 requests of about 4 s, the stages' device
    time beside v1's, voice conversion, both streaming paths through the
    frontend, `/stream` and `/`; then vits2_v1.json (the HiFi-GAN decoder)
@@ -121,13 +127,15 @@ Phases 5, 5b, 5c, 5d, 7 and 8 are the serving main paths, phases 10, 11,
 each kernel's
 launch count is zeroed just before its path and read just after (under
 `half` every MRF stage goes through K1's bf16 instance and no int8 kernel
-runs; under `quantize` it is the reverse; the Vocos decoder launches none;
+runs; under `quantize` it is the reverse; the Vocos decoder launches
+none of these, but 18 GEMM and 10 row launches of VB a decode;
 while training K1 launches only in v1's eval-mode decodes, each val
 batch's slice and the media utterance, and K2 once per step and once per
 val batch); the `kernels` line sums each kernel's launches over the
 serving paths (v1's batches, vits2_v1's batch, the bundle phase's
 requests, 5c's exported v1 decoder and 5d's bundle requests; K1 also v1
-training's eval) and gives K2 one entry per training path (v1's with
+training's eval; VB phase 8's vits2_vocos_v1 batches) and gives K2 one
+entry per training path (v1's with
 11c's data-parallel steps,
 the VITS2 recipes' at the VITS2 step's shape, and the bf16 + WavLM
 discriminator run's at its step's shape).
@@ -161,7 +169,8 @@ from wetts_tpu_torch.utils.profiling import cuda_ms, device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "baker", "configs", "v1.json")
-KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_mrf_conv", "int8_chain")
+KERNELS = ("mrf_stage", "mas", "int8_conv", "int8_mrf_conv", "int8_chain",
+           "vocos_backbone")
 # H100 SXM published peaks at the 700 W limit (NVIDIA data sheet), dense
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
@@ -2229,6 +2238,232 @@ def within(got, want, what: str) -> dict:
     return {"max_abs_err": err, "max_abs_want": peak, "tolerance": tol}
 
 
+# VB at the batch cell's most common decode: 8 rows of 1152 latent frames,
+# the backbone over 1153
+VOCOS_ROWS, VOCOS_FRAMES = 8, 1152
+# largest gap over the largest magnitude against float64: a GEMM's (of its
+# product's part, for pw_conv2 the update scale * (acc + bias)), which a
+# single TF32 pass fails by a hundredfold (it reads 2-4e-4; VB's GEMMs some
+# 5e-7, and 1.1-1.3e-5 at pw_conv2 with all of K summed on the tensor
+# cores), and a row launch's (VB reads 1.2-1.9e-7)
+VOCOS_GEMM_TOL, VOCOS_ROW_TOL = 2e-6, 1e-6
+
+
+@torch.inference_mode()
+def phase_vocos_kernels() -> dict:
+    """VB's two kernels (`csrc/vocos_backbone.cu` through
+    `models/vocos_backbone.py`) against float64 at VOCOS_ROWS x
+    VOCOS_FRAMES, the published widths with seeded random weights
+    (`tools/probe_vocos.random_decoder`), f32 with TF32 off:
+    - each of the backbone's 18 GEMMs (`vocos_gemm`), in its epilogue mode
+      on the activations the module path gives it: within VOCOS_GEMM_TOL,
+      which the same product in a single TF32 pass (cuBLAS, TF32 on) must
+      fail, and under a twentieth of that pass's gap;
+    - each of its 10 row launches (`vocos_rownorm`: the depthwise conv and
+      LayerNorm, or LayerNorm alone) within VOCOS_ROW_TOL;
+    - timed in turns (kernels, plain, library, kernels): the 18 GEMM
+      launches of one backbone against their plain versions (F.linear and
+      the epilogue's ops) and the module path's cuDNN 1x1 convs alone
+      (F.conv1d on [B, C, T]); the 10 row launches against the module
+      path's (the depthwise conv and LayerNorm modules, with their
+      transposes) and F.layer_norm alone; bounds from these inputs (the
+      GEMMs' 3 TF32 products per f32 product at 495 TFLOP/s, or their
+      bytes; the row launches' bytes).
+    Returns {"gemm": row, "rownorm": row}."""
+    import torch.nn.functional as F
+
+    from wetts_tpu_torch.models import vocos_backbone as vb
+    from wetts_tpu_torch.tools.probe_vocos import WIDTHS, random_decoder
+
+    dec = random_decoder()
+    rows, t1 = VOCOS_ROWS, VOCOS_FRAMES + 1
+    m = rows * t1
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    z = torch.randn(rows, VOCOS_FRAMES, WIDTHS["in_channels"], device="cuda",
+                    generator=gen)
+    g = torch.randn(rows, WIDTHS["gin_channels"], 1, device="cuda",
+                    generator=gen)
+    packed = dec.packed_weights()
+    cond = dec.cond(g)[:, :, 0].contiguous()
+
+    def linear(x, conv):
+        return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+    def channels_first(x):
+        return x.view(rows, t1, -1).transpose(1, 2)
+
+    def channels_last(x):
+        return x.transpose(1, 2).reshape(m, -1).contiguous()
+
+    # the module path's activations, channels last: each GEMM's (name,
+    # conv, packed, input, mode, aux, residual) and each row launch's
+    # (input, norm, dw_conv)
+    gemms, norms = [], []
+    x = torch.cat([z[:, 1:2], z], dim=1).reshape(m, -1)
+    gemms.append(("in_conv", dec.in_conv, packed[0], x, vb.BIAS, cond, None))
+    x = linear(x, dec.in_conv) + cond.repeat_interleave(t1, dim=0)
+    norms.append((x, dec.norm_pre, None))
+    x = channels_last(dec.norm_pre(channels_first(x)))
+    for i, layer in enumerate(dec.layers):
+        norms.append((x, layer.norm, layer.dw_conv))
+        y = channels_last(layer.norm(layer.dw_conv(channels_first(x))))
+        gemms.append(("pw_conv1", layer.pw_conv1, packed[1 + 2 * i], y,
+                      vb.GELU, None, None))
+        h = F.gelu(linear(y, layer.pw_conv1))
+        gemms.append(("pw_conv2", layer.pw_conv2, packed[2 + 2 * i], h,
+                      vb.RESIDUAL, layer.scale, x))
+        x = x + layer.scale * linear(h, layer.pw_conv2)
+    norms.append((x, dec.norm_post, None))
+    y = channels_last(dec.norm_post(channels_first(x)))
+    gemms.append(("out_conv", dec.out_conv, packed[-1], y, vb.BIAS, None,
+                  None))
+
+    def part(conv, x, mode, aux, tf32=False):
+        """The GEMM's part of its output in float64, or (tf32) with the
+        product by cuBLAS in a single TF32 pass: acc + bias (+ the row
+        vector), its GELU, or pw_conv2's update scale * (acc + bias)."""
+        if tf32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                v = linear(x, conv).double()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            v = F.linear(x.double(), conv.weight[:, :, 0].double(),
+                         conv.bias.double())
+        if mode == vb.GELU:
+            return F.gelu(v)
+        if mode == vb.RESIDUAL:
+            return aux.double() * v
+        return v if aux is None else v + aux.double().repeat_interleave(
+            t1, dim=0)
+
+    def gap(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    gemm_rows = []
+    for name, conv, pk, x, mode, aux, res in gemms:
+        w = conv.weight[:, :, 0]
+        # pw_conv2's update alone on a zero residual: on its own residual
+        # the output's rounding would hide the update's gap
+        out = None if res is None else torch.zeros_like(res)
+        got = vb.gemm(x, w, pk, conv.bias, mode, aux, t1, out)
+        want = part(conv, x, mode, aux)
+        row = {"name": name, "M": m, "N": w.shape[0], "K": w.shape[1],
+               "max_abs_err": (got.double() - want).abs().max().item(),
+               "gap": gap(got.double(), want),
+               "gap_tf32": gap(part(conv, x, mode, aux, tf32=True), want)}
+        if res is not None:
+            # on its residual, in place: residual + update within two
+            # roundings of the output
+            on_res = vb.gemm(x, w, pk, conv.bias, mode, aux, t1, res.clone())
+            row["residual_ulps"] = ((on_res.double() - res.double()
+                                     - got.double()).abs().max()
+                                    / (2.0 ** -23 * res.abs().max())).item()
+        gemm_rows.append(row)
+    norm_rows = []
+    for x, norm, dw in norms:
+        xd = x.double()
+        if dw is not None:
+            xd = channels_last(F.conv1d(
+                channels_first(xd), dw.weight.double(), dw.bias.double(),
+                padding=1, groups=x.shape[1]))
+        want = F.layer_norm(xd, (x.shape[1],), norm.gamma.double(),
+                            norm.beta.double(), vb.LN_EPS)
+        got = vb.rownorm(x, t1, norm, dw).double()
+        norm_rows.append({"conv": dw is not None,
+                          "max_abs_err": (got - want).abs().max().item(),
+                          "gap": gap(got, want)})
+
+    # timed; pw_conv2's residuals written in place on copies
+    outs = [None if res is None else res.clone() for *_, res in gemms]
+    gemms_cf = [channels_first(x).contiguous() for _, _, _, x, *_ in gemms]
+    norms_cf = [channels_first(x).contiguous() for x, _, _ in norms]
+
+    def kernel_gemms():
+        for (_, conv, pk, x, mode, aux, _), out in zip(gemms, outs):
+            vb.gemm(x, conv.weight[:, :, 0], pk, conv.bias, mode, aux, t1,
+                    out)
+
+    def plain_gemms():
+        for _, conv, _, x, mode, aux, res in gemms:
+            v = linear(x, conv)
+            if mode == vb.GELU:
+                F.gelu(v)
+            elif mode == vb.RESIDUAL:
+                res + aux * v
+            elif aux is not None:
+                v + aux.repeat_interleave(t1, dim=0)
+
+    def library_gemms():
+        for (_, conv, *_), x in zip(gemms, gemms_cf):
+            F.conv1d(x, conv.weight, conv.bias)
+
+    def kernel_norms():
+        for x, norm, dw in norms:
+            vb.rownorm(x, t1, norm, dw)
+
+    def module_norms():
+        for (_, norm, dw), x in zip(norms, norms_cf):
+            norm(x if dw is None else dw(x))
+
+    def library_norms():
+        for x, norm, _ in norms:
+            F.layer_norm(x, (x.shape[1],), norm.gamma, norm.beta, vb.LN_EPS)
+
+    def timed(kernel, plain, library, reps):
+        """in turns: kernel, plain, library, kernel."""
+        ms = device_ms(kernel, reps)
+        plain_ms, library_ms = device_ms(plain, 5), device_ms(library, 5)
+        return 0.5 * (ms + device_ms(kernel, reps)), plain_ms, library_ms
+
+    flops = sum(2 * r["M"] * r["N"] * r["K"] for r in gemm_rows)
+    # activations in and out (pw_conv2's residual in too), packed weights
+    gemm_bytes = sum(
+        4 * (x.numel() + (1 if res is None else 2) * m * conv.weight.shape[0]
+             + pk.numel()) for _, conv, pk, x, _, _, res in gemms)
+    ms, plain_ms, library_ms = timed(kernel_gemms, plain_gemms,
+                                     library_gemms, 10)
+    gemm = {"rows": rows, "frames": t1, "launches": len(gemm_rows),
+            "gemms": gemm_rows,
+            "max_abs_err": max(r["max_abs_err"] for r in gemm_rows),
+            "gap": max(r["gap"] for r in gemm_rows),
+            "gap_tf32_min": min(r["gap_tf32"] for r in gemm_rows),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": 1e3 * max(3 * flops / PEAK_TF32_FLOPS,
+                                  gemm_bytes / PEAK_BYTES),
+            "gflop": flops / 1e9, "tflops": flops / ms / 1e9}
+    ms, plain_ms, library_ms = timed(kernel_norms, module_norms,
+                                     library_norms, 20)
+    rownorm = {"rows": rows, "frames": t1, "launches": len(norm_rows),
+               "norms": norm_rows,
+               "max_abs_err": max(r["max_abs_err"] for r in norm_rows),
+               "gap": max(r["gap"] for r in norm_rows),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": 1e3 * sum(8 * x.numel() for x, _, _ in norms)
+               / PEAK_BYTES}
+    print("VB gemm " + json.dumps(gemm))
+    print("VB rownorm " + json.dumps(rownorm))
+    for r in gemm_rows:
+        what = f"VB {r['name']} [{r['M']}, {r['N']}, {r['K']}]"
+        check(r["gap"] <= VOCOS_GEMM_TOL,
+              f"{what}: gap {r['gap']} > {VOCOS_GEMM_TOL}")
+        check(r["gap_tf32"] > VOCOS_GEMM_TOL,
+              f"{what}: a single TF32 pass's gap {r['gap_tf32']} is within "
+              f"{VOCOS_GEMM_TOL}, so the tolerance tells nothing")
+        check(r["gap"] < r["gap_tf32"] / 20,
+              f"{what}: gap {r['gap']}, a single TF32 pass's "
+              f"{r['gap_tf32']}")
+        check(r.get("residual_ulps", 0) <= 2,
+              f"{what}: the residual added {r.get('residual_ulps')} ulps "
+              f"off")
+    for r in norm_rows:
+        check(r["gap"] <= VOCOS_ROW_TOL,
+              f"VB rownorm (conv {r['conv']}): gap {r['gap']} > "
+              f"{VOCOS_ROW_TOL}")
+    return {"gemm": gemm, "rownorm": rownorm}
+
+
 def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
     """VITS2 serving at the full width and depth of vits2_vocos_v1.json
     (24 kHz; `pre_conv` transformer flows; the Vocos decoder, 512 / 1536 /
@@ -2240,6 +2475,9 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
     - VITS2_BATCHES batches of 4 raw-phone requests of about 4 s (the
       length_scale calibrated on the first batch) at the default noise
       scales: audio-s/s, batch p50 ms, StageTimes encode / flow / decode;
+      every decode on VB (`vocos_fused`), its launches zeroed just before
+      the batches and read just after: 18 GEMM and 10 row launches a
+      decode;
     - device ms of encode_prior, flow_reverse and decode at B = 4 and the
       352-frame bucket, beside v1's (`phase_model_stages`);
     - voice conversion of one of those requests from speaker 0 to speaker
@@ -2253,8 +2491,11 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
       WAVs at 24000 Hz;
     - vits2_v1.json (the same flows, the HiFi-GAN decoder, 22.05 kHz), one
       batch under f32, `half` and `quantize`: K1 and Q0-Q2 launched per
-      decode as on v1, the reduced audio held to f32 with v1's bounds.
-    Returns the vits2_v1 engines' kernel launches per precision."""
+      decode as on v1 and no VB launch, the reduced audio held to f32 with
+      v1's bounds.
+    Returns the vits2_v1 engines' kernel launches per precision, and VB's
+    of the batches under "vits2_vocos"."""
+    from wetts_tpu_torch.models import vocos_backbone as vb
     from wetts_tpu_torch.serving.engine import MAX_CLAUSE_LEN, SynthesisEngine
     from wetts_tpu_torch.serving.server import TtsServer
     from wetts_tpu_torch.serving.streaming import DEFAULT_BLOCK
@@ -2293,8 +2534,21 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
         engine.synthesize_ids_batch(b_ids, b_sids)
     batches = utterance_batches(engine, rng, VITS2_BATCHES)
     engine.stage_times.reset()
+    vb.gemm.launches = vb.rownorm.launches = 0
     audios, synth = phase_synthesis(engine, batches)
+    vocos = {"vocos_gemm": vb.gemm.launches,
+             "vocos_rownorm": vb.rownorm.launches}
     report = engine.stage_times.report()
+    # every decode on VB: 2 GEMMs and a row launch a ConvNeXt layer, the
+    # in_conv and out_conv, norm_pre and norm_post
+    fused, layers = report["vocos_fused"], cfg.model.vocos_num_layers
+    check(fused["count"] == fused["n"] == report["decode"]["n"] > 0,
+          f"vits2: {fused['count']} of {fused['n']} Vocos decodes on VB, "
+          f"{report['decode']['n']} decodes")
+    check(vocos == {"vocos_gemm": (2 * layers + 2) * fused["count"],
+                    "vocos_rownorm": (layers + 2) * fused["count"]},
+          f"vits2: VB launched {vocos} for {fused['count']} decodes")
+    synth["vocos_launches"] = dict(vocos, decodes=fused["count"])
     synth.update(length_scale=length_scale, stage_ms_p50={
         k: report[k]["p50_ms"] for k in ("encode", "flow", "decode")})
     out["synthesis"] = synth
@@ -2402,11 +2656,13 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
         e = build_engine(cfg1, **options)
         e.synthesize(phrase(np.random.default_rng(SEED), 10))  # warm-up
         batch = utterance_batches(e, np.random.default_rng(SEED + 1), 1)[0]
-        for fn in counters.values():
+        for fn in (*counters.values(), vb.gemm, vb.rownorm):
             fn.launches = 0
         e.stage_times.reset()
         results[name] = e.synthesize_ids_batch(*batch)
         launches[name] = {k: fn.launches for k, fn in counters.items()}
+        check(vb.gemm.launches == vb.rownorm.launches == 0,
+              f"vits2_v1 {name}: the HiFi-GAN decoder launched VB")
         check_launches(f"vits2_v1 {name}", launches[name], cfg1.model, name,
                        e.stage_times.report()["decode"]["n"])
         del e
@@ -2418,7 +2674,7 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
                                  results["f32"], 0.99)}
     torch.cuda.empty_cache()
     print("vits2 " + json.dumps(out))
-    return launches
+    return dict(launches, vits2_vocos=vocos)
 
 
 # the bundle phase: G_<step>.pth -> export_bundle -> Model at each precision
@@ -3490,6 +3746,7 @@ def main() -> int:
     fe = build_frontend()
     phase_streaming(cfg, card, fe)
     torch.cuda.empty_cache()
+    vocos_kernels = phase_vocos_kernels()
     vits2 = phase_vits2(card, v1_stages, fe)
     del fe
 
@@ -3594,6 +3851,21 @@ def main() -> int:
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": "operations",
             "library_ms": c["library_ms"]})
+    # VB: ms, plain_ms, library_ms and bound_ms of one backbone's 18 GEMMs
+    # and 10 row launches at 8 x 1153 frames; its GEMMs' bound is that of 3
+    # TF32 products per f32 product, their library_ms the module path's 18
+    # cuDNN f32 1x1 convs alone, the row launches' the 10 F.layer_norm
+    for name, what in (("vocos_gemm", "gemm"), ("vocos_rownorm", "rownorm")):
+        r = vocos_kernels[what]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "wetts_tpu_torch/csrc/vocos_backbone.cu",
+            "replaces": "none (the Vocos backbone's cuDNN f32 convs)",
+            "launches": vits2["vits2_vocos"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if what == "gemm" else "bytes",
+            "library_ms": r["library_ms"]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
                                  f"main path")

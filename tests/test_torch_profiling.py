@@ -2,7 +2,8 @@
 on torch.profiler's timeline while a profiler records, and counts and
 totals over every observation since `reset()`; device stages (the host
 clock on the CPU) and counters; the engine's decode counted, and the Vocos
-decoder's backbone and iSTFT as device stages, with the same audio.
+decoder's backbone and iSTFT as device stages, with the same audio, and
+its decodes counted in `vocos_fused`.
 
 (`tests/test_profiling.py` covers the JAX package's StageTimes.) Imports
 nothing of JAX; the one card test runs as
@@ -234,6 +235,22 @@ def test_vocos_engine_stages_and_counts_every_decode(vocos_engine):
     assert rep["vocos"]["n"] == rep["istft"]["n"] == len(shapes)
     assert rep["decode_rows"]["count"] == sum(b for b, _, _ in shapes)
     assert rep["decode_frames"]["count"] == sum(b * t for b, _, t in shapes)
+
+
+def test_vocos_decodes_count_vocos_fused(vocos_engine):
+    """Every Vocos decode counts `vocos_fused` beside `decode_rows`, batch
+    and streamed: 0 on the CPU, which keeps the decoder's modules."""
+    engine = vocos_engine
+    engine.stage_times.reset()
+    engine.synthesize_ids_batch(*BATCH)
+    chunks = list(engine.stream_synthesize("a b c a b c a b", "spk1",
+                                           block=8, pad=2))
+    rep = engine.stage_times.report()
+    assert chunks and rep["decode_rows"]["n"] >= 2
+    assert rep["vocos_fused"]["n"] == rep["decode_rows"]["n"]
+    assert rep["vocos_fused"]["count"] == 0
+    assert "count" in rep["vocos_fused"] and "vocos_fused: 0(x" in (
+        engine.stage_times.summary())
 
 
 def test_vocos_audio_is_bit_equal_with_and_without_stages():

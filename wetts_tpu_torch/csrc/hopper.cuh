@@ -7,9 +7,10 @@
 // 128 bytes apart and K slices `rows * 16` bytes apart. One wgmma step reads
 // two K slices (16 bf16, 8 tf32 or 32 int8 values of each row), and
 // shifting the operand by whole rows is a change of its descriptor's start
-// address. Included by mrf_stage.cu (K1), int8_mrf_conv.cu (Q1),
-// int8_chain.cu (K3) and mas.cu (K2: mbarriers, the timed spin and bulk
-// copies only); each
+// address. Included by mrf_stage.cu (K1), vocos_backbone.cu (VB, which
+// reads its operands under the 128-byte swizzle instead), int8_mrf_conv.cu
+// (Q1), int8_chain.cu (K3) and mas.cu (K2: mbarriers, the timed spin and
+// bulk copies only); each
 // builds into its own library, so everything here has internal linkage.
 
 #pragma once
@@ -118,6 +119,14 @@ __device__ __forceinline__ void consumer_barrier() {
 }
 
 // ---- wgmma ----------------------------------------------------------------
+
+// v = hi + lo with both parts TF32 values (round to nearest, ties away):
+// three TF32 products hi*lo + lo*hi + hi*hi keep an f32 product's accuracy
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
 
 // descriptor of a K-major operand without swizzle: 8 rows x 16 bytes core
 // matrices, `lbo` bytes between the two K slices of one instruction, `sbo`

@@ -113,13 +113,6 @@ __device__ __forceinline__ uint32_t lrelu_bf16x2(uint32_t raw, float slope) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// v = hi + lo with both parts TF32 values (round to nearest, ties away)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
-}
-
 template <typename XT> struct Io;
 
 template <> struct Io<float> {
