@@ -290,7 +290,7 @@ def phase_kernels(model, gen_cfg, dtype=torch.float32):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for i, t, c in stage_shapes(gen_cfg):
-        stage = (model.dec.reduced("bf16").stages[i] if bf16
+        stage = (model.dec.form("bf16").stages[i] if bf16
                  else model.dec.stage_convs(i))
         packed = pack_stage(stage)  # as the decoder keeps it
         h = torch.randn(BATCH, t, c, device="cuda", generator=gen).to(dtype)
@@ -402,7 +402,7 @@ def phase_int8_kernels(model, gen_cfg, k1_bf16_rows):
     kind = gen_cfg.resblock
     ks = tuple(gen_cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in gen_cfg.resblock_dilation_sizes)
-    red = model.dec.reduced("int8")
+    red = model.dec.form("int8")
     per_phase = upsample_scale_per_phase(
         gen_cfg.upsample_initial_channel, gen_cfg.upsample_rates,
         FRAME_BUCKET)
@@ -739,7 +739,7 @@ def phase_chunk_kernels(model, gen_cfg):
     kind = gen_cfg.resblock
     ks = tuple(gen_cfg.resblock_kernel_sizes)
     ds = tuple(tuple(d) for d in gen_cfg.resblock_dilation_sizes)
-    red8, red16 = model.dec.reduced("int8"), model.dec.reduced("bf16")
+    red8, red16 = model.dec.form("int8"), model.dec.form("bf16")
     per_phase = upsample_scale_per_phase(
         gen_cfg.upsample_initial_channel, gen_cfg.upsample_rates, frames)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -841,7 +841,7 @@ def frontend_tables():
             G2pEn(cmudict_path()), {p: i for i, p in enumerate(phones)})
 
 
-def build_engine(cfg, **options):
+def build_engine(cfg, precision: str = "f32"):
     from wetts_tpu_torch.models.synthesizer import Synthesizer
     from wetts_tpu_torch.serving.engine import SynthesisEngine
 
@@ -851,7 +851,7 @@ def build_engine(cfg, **options):
     # random weights predict about one frame per phone; length_scale 5
     # brings durations near real speech's (~6 frames of 11.6 ms per phone)
     engine = SynthesisEngine(cfg, model, phone2id, speakers, seed=SEED,
-                             length_scale=5.0, **options)
+                             length_scale=5.0, precision=precision)
     check(engine.device == torch.device("cuda"), "engine not on cuda")
     return engine
 
@@ -1822,14 +1822,13 @@ def check_launches(what: str, launches: dict, m, precision: str,
               f"{n_decode} decodes")
 
 
-def serve_precision(cfg, name: str, options: dict, rng_seed: int,
-                    with_server: bool):
+def serve_precision(cfg, name: str, rng_seed: int, with_server: bool):
     """The serving main path at one precision: a fresh engine (the same
     seeded weights and noise stream every time), warm-up, then the batches
     (and the HTTP requests) with every kernel's count zeroed just before
     and read just after."""
     counters = kernel_counters()
-    engine = build_engine(cfg, **options)
+    engine = build_engine(cfg, precision=name)
     check(engine.precision == name, f"engine precision {engine.precision}")
     rng = np.random.default_rng(rng_seed)
     # warm-up (cuDNN plans, allocator), then the main path's requests
@@ -2016,9 +2015,8 @@ def phase_streaming(cfg, card: str, fe):
     speakers = {f"spk{i}": i for i in range(N_SPEAKERS)}
     engines = {name: SynthesisEngine(
         cfg, model, phone2id, speakers, frontend=frontend, seed=SEED,
-        noise_scale=0.0, noise_scale_w=0.0, **options)
-        for name, options in (("f32", {}), ("bf16", {"half": True}),
-                              ("int8", {"quantize": True}))}
+        noise_scale=0.0, noise_scale_w=0.0, precision=name)
+        for name in ("f32", "bf16", "int8")}
     rng = np.random.default_rng(SEED)
     counters = kernel_counters()
     m = cfg.model
@@ -2651,9 +2649,8 @@ def phase_vits2(card: str, v1_stages: dict, fe) -> dict:
     cfg1 = vits2_config(VITS2_HIFIGAN_CONFIG, N_PHONES)
     counters = kernel_counters()
     launches, results = {}, {}
-    for name, options in (("f32", {}), ("bf16", {"half": True}),
-                          ("int8", {"quantize": True})):
-        e = build_engine(cfg1, **options)
+    for name in ("f32", "bf16", "int8"):
+        e = build_engine(cfg1, precision=name)
         e.synthesize(phrase(np.random.default_rng(SEED), 10))  # warm-up
         batch = utterance_batches(e, np.random.default_rng(SEED + 1), 1)[0]
         for fn in (*counters.values(), vb.gemm, vb.rownorm):
@@ -3319,8 +3316,8 @@ def phase_export(cfg, model) -> dict:
     t = FRAME_BUCKET
     host_us = {"launcher": [], "op": []}
     with torch.no_grad():
-        for i, (stage, packed) in enumerate(zip(dec.checked_stages(),
-                                                dec.packed_stages())):
+        form = dec.form("f32")
+        for i, (stage, packed) in enumerate(zip(form.stages, form.packed)):
             t *= m_cfg.upsample_rates[i]
             c = stage[0][0][0].shape[0]
             h = torch.randn(1, t, c, device="cuda",
@@ -3723,12 +3720,12 @@ def main() -> int:
     chain = phase_chain()
 
     # ---- the serving main path, once per precision (same seeds each time)
-    exact, synth, launches, v1_model = serve_precision(cfg, "f32", {}, SEED,
+    exact, synth, launches, v1_model = serve_precision(cfg, "f32", SEED,
                                                        True)
-    half, synth_bf16, launches_bf16, _ = serve_precision(
-        cfg, "bf16", {"half": True}, SEED, False)
-    quant, synth_int8, launches_int8, _ = serve_precision(
-        cfg, "int8", {"quantize": True}, SEED, True)
+    half, synth_bf16, launches_bf16, _ = serve_precision(cfg, "bf16", SEED,
+                                                         False)
+    quant, synth_int8, launches_int8, _ = serve_precision(cfg, "int8", SEED,
+                                                          True)
     compare_with_f32("bf16", half, exact, 0.995)
     compare_with_f32("int8", quant, exact, 0.99)
     print("serving " + json.dumps({

@@ -614,9 +614,9 @@ def test_int8_packed_weights_renewed_after_load_state_dict(cuda):
                   "upsample_kernel_sizes": [8, 8]},
         "num_phones": 24, "num_speakers": 1})
     dec = random_init_(Synthesizer(cfg), 0).dec.to(cuda).eval()
-    kept = dec.reduced("int8").stages[0][0][0]
+    kept = dec.form("int8").stages[0][0][0]
     dec.load_state_dict(random_init_(Synthesizer(cfg), 1).dec.state_dict())
-    fresh = dec.reduced("int8").stages[0][0][0]
+    fresh = dec.form("int8").stages[0][0][0]
     assert fresh is not kept and fresh.packed.device.type == "cuda"
     assert not torch.equal(fresh.packed, kept.packed)
     assert torch.equal(fresh.packed, pack_int8_weight(fresh.wq))
@@ -870,11 +870,10 @@ def test_stream_batched_tail_equals_per_chunk_on_gpu(cuda, precision, atol):
                   "upsample_kernel_sizes": [8, 8], "gin_channels": 16},
         "num_phones": 24, "num_speakers": 3})
     phones = {"sil": 0, **{f"p{i}": i for i in range(1, 24)}}
-    option = {"f32": {}, "bf16": {"half": True},
-              "int8": {"quantize": True}}[precision]
     engine = SynthesisEngine(cfg, random_init_(Synthesizer(cfg), 0), phones,
                              {"a": 0, "b": 1, "c": 2}, noise_scale=0.0,
-                             length_scale=5.0, noise_scale_w=0.0, **option)
+                             length_scale=5.0, noise_scale_w=0.0,
+                             precision=precision)
     text = ". ".join(" ".join(f"p{(7 * k + j) % 23 + 1}" for j in range(30))
                      for k in range(9)) + "."
     counters = (mrf_stage, int8_conv1d)

@@ -53,12 +53,13 @@ def engines(name: str, precision: str, seed: int = 5, noise=(0.667, 0.8)):
                                         CONFIGS[name]))
     cfg.num_phones, cfg.num_speakers = N_PHONES, N_SPEAKERS
     model = random_init_(Synthesizer(cfg), 1234)
-    option = {"f32": {}, "half": {"half": True}}[precision]
     # random weights predict about a frame a phone; length_scale 5 brings
     # the frames near speech's
     made = [SynthesisEngine(cfg, model, PHONES, SPEAKERS, seed=seed,
                             noise_scale=noise[0], length_scale=5.0,
-                            noise_scale_w=noise[1], **option)
+                            noise_scale_w=noise[1],
+                            precision={"half": "bf16"}.get(precision,
+                                                           precision))
             for _ in range(2)]
     made[1]._encode_flow = made[1]._encode_flow_eager
     return made

@@ -1,6 +1,7 @@
-"""Reduced-precision serving in the port (`half`: bf16 flow and decoder;
-`quantize`: bf16 flow, int8 decoder) held against the port's own f32 path
-and against the JAX package with the same options.
+"""Reduced-precision serving in the port (`precision="bf16"`: bf16 flow and
+decoder; "int8": bf16 flow, int8 decoder) held against the port's own f32
+path and against the JAX package with the matching option (`half`,
+`quantize`).
 
 The two frameworks round bf16 at other places, so nothing here is exact:
 each test states the bound it uses, which is the JAX package's own for its
@@ -27,6 +28,7 @@ from wetts_tpu.config import Config as JaxConfig
 from wetts_tpu.models.synthesizer import Synthesizer as JaxSynthesizer
 from wetts_tpu.serving.engine import SynthesisEngine as JaxEngine
 from wetts_tpu_torch.config import Config
+from wetts_tpu_torch.models.synthesizer import Synthesizer
 from wetts_tpu_torch.serving.engine import SynthesisEngine
 
 
@@ -69,7 +71,7 @@ def test_bf16_flow_reverse_tracks_f32_and_jax():
         args = [torch.from_numpy(a) for a in (z_p, mask, g)]
         exact = port.flow_reverse(*args).numpy()
         got = port.flow_reverse(*args, precision="bf16")
-        assert port.flow_bf16() is port.flow_bf16()  # made once
+        assert port.flow_at("bf16") is port.flow_at("bf16")  # made once
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     assert not got[1, 15:].any()
@@ -94,6 +96,8 @@ ENGINE_CFG = {  # tests/test_serving.py's engine config
 PHONES = {"sil": 0, "a": 1, "b": 2, "c": 3}
 SPEAKERS = {"spk0": 0, "spk1": 1}
 BATCH, SIDS = [[1, 2, 3, 1, 2], [3, 2, 1]], [0, 1]
+# the JAX engine's option -> the port engine's precision
+PRECISION = {"half": "bf16", "quantize": "int8"}
 
 
 @pytest.mark.parametrize("option", ["half", "quantize"])
@@ -117,8 +121,8 @@ def test_reduced_engine_drift_bounded(option, monkeypatch):
                                SPEAKERS, device="cpu", **kw)
 
     exact = port_engine().synthesize_ids_batch(BATCH, SIDS)
-    reduced = port_engine(**{option: True})
-    assert reduced.precision == {"half": "bf16", "quantize": "int8"}[option]
+    reduced = port_engine(precision=PRECISION[option])
+    assert reduced.precision == PRECISION[option]
     got = reduced.synthesize_ids_batch(BATCH, SIDS)
     for want in (exact, want_jax):
         for g, w in zip(got, want):
@@ -156,8 +160,8 @@ def test_reduced_vits2_engine_drift_bounded(option, monkeypatch):
             device="cpu", **kw)
 
     exact = port_engine().synthesize_ids_batch(BATCH, SIDS)
-    reduced = port_engine(**{option: True})
-    flow = reduced.model.flow_bf16()
+    reduced = port_engine(precision=PRECISION[option])
+    flow = reduced.model.flow_at("bf16")
     assert {p.dtype for p in flow.parameters()} == {torch.bfloat16}
     got = reduced.synthesize_ids_batch(BATCH, SIDS)
     for want in (exact, want_jax):
@@ -169,13 +173,20 @@ def test_reduced_vits2_engine_drift_bounded(option, monkeypatch):
 
 
 def test_reduced_engine_refuses_another_vocoder():
-    cfg = Config.from_dict(copy.deepcopy(ENGINE_CFG))
-    model = port_synthesizer(ENGINE_CFG, jax_synthesizer(ENGINE_CFG)[1])
-    cfg.model.vocoder_type = "vocos"
-    for option in ("half", "quantize"):
-        with pytest.raises(ValueError, match="vocoder_type"):
+    """A decoder with no route at a reduced precision (Vocos: f32 only)
+    raises from its own module when the engine is built."""
+    cfg_dict = copy.deepcopy(ENGINE_CFG)
+    cfg_dict["model"].update(
+        vocoder_type="vocos", vocos_channels=32, vocos_h_channels=48,
+        vocos_out_channels=258, vocos_num_layers=2,
+        vocos_istft_config={"n_fft": 256, "hop_length": 64,
+                            "win_length": 256})
+    cfg = Config.from_dict(cfg_dict)
+    model = Synthesizer(cfg)
+    for precision in PRECISION.values():
+        with pytest.raises(ValueError, match="Vocos decoder runs in f32"):
             SynthesisEngine(cfg, model, PHONES, SPEAKERS, device="cpu",
-                            **{option: True})
+                            precision=precision)
 
 
 @pytest.mark.parametrize("precision,bundle", [

@@ -107,17 +107,17 @@ def test_q1_packed_weights_follow_load_state_dict_and_eval():
         return random_init_(g, seed).eval()
 
     dec = gen(0)
-    kept = dec.reduced("int8").stages[0][0][0]
-    assert dec.reduced("int8").stages[0][0][0] is kept  # derived once
+    kept = dec.form("int8").stages[0][0][0]
+    assert dec.form("int8").stages[0][0][0] is kept  # derived once
     dec.load_state_dict(gen(1).state_dict())
-    fresh = dec.reduced("int8").stages[0][0][0]
+    fresh = dec.form("int8").stages[0][0][0]
     assert fresh is not kept and not torch.equal(fresh.packed, kept.packed)
     assert torch.equal(fresh.packed, pack_int8_weight(fresh.wq))
     assert torch.equal(fresh.wq, quant.quantize_weight(
         dec.stage_convs(0)[0][0][0])[0])
     dec.train()
     dec.eval()
-    assert dec.reduced("int8").stages[0][0][0] is not fresh
+    assert dec.form("int8").stages[0][0][0] is not fresh
 
 
 @pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])

@@ -270,14 +270,14 @@ def test_decoder_scale_plumbing(kind, dtype, monkeypatch):
     monkeypatch.setattr(hifigan, "row_scale", scale)
     monkeypatch.setattr(mrf, "row_scale", scale)
     with torch.no_grad():
-        got = dec._forward_reduced(x, None, "int8", dtype)
+        got = dec.infer(x, None, hifigan._Form(dec, "int8", dtype))
     monkeypatch.undo()
     n_convs = 3 * 2 * 2 * (2 if kind == "1" else 1)
     assert [s[0] for s in seen].count("up") == 3
     assert len(seen) == 3 + n_convs and all(ok for _, ok in seen)
     assert scales == [(3, 10, 128)]
 
-    red = hifigan._Reduced(dec, "int8", dtype)
+    red = hifigan._Form(dec, "int8", dtype)
     per_phase = upsample_scale_per_phase(128, (4, 2, 2), 10)
     with torch.no_grad():
         h = F.conv1d(x.to(dtype), *red.conv_pre, padding=3).transpose(1, 2)

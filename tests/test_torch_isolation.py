@@ -96,14 +96,15 @@ PROBE = textwrap.dedent("""
             pass
         else:
             raise AssertionError("engine without a GPU did not raise")
-        for option in ("half", "quantize"):
+        for precision in ("bf16", "int8"):
             try:
                 SynthesisEngine(cfg, Synthesizer(cfg), {"sil": 0},
-                                **{option: True})
+                                precision=precision)
             except RuntimeError:
                 pass
             else:
-                raise AssertionError(option + " without a GPU did not raise")
+                raise AssertionError(precision + " without a GPU did not "
+                                     "raise")
         from wetts_tpu_torch.bin import (eval_frontend, export_frontend,
                                          export_graphs, infer_vits,
                                          train_frontend, train_vits,

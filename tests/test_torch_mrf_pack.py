@@ -1,7 +1,8 @@
 """What K1's CUDA kernel relies on and the CPU can check: the packed weight
 layout, the split-TF32 arithmetic of the f32 instance, the geometry function
-that sizes its tiles and shared memory, and that the decoder packs anew
-whenever its folded weights change.
+that sizes its tiles and shared memory, and the decoder's stages packed as
+the kernel takes them (when they are packed anew is held with every other
+derived value in tests/test_torch_derived.py).
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py); here its
 layouts and sizes are held to what the source's note promises, and its f32
@@ -187,63 +188,13 @@ def test_geometry_refuses_a_halo_beyond_shared_memory():
         conv_geometry(256, 11, 400, True)
 
 
-# ---- (d) the decoder packs anew when its weights change ---------------------
+# ---- (d) the decoder's stages as K1 takes them ----------------------------
 
 def _generator(seed=0):
     """A small decoder with seeded random weights, folded, in eval mode."""
     gen = hifigan.Generator(16, "1", (3, 5), ((1, 3), (1, 3)), (2, 2), 32,
                             (4, 4), gin_channels=0)
     return random_init_(gen, seed).eval()
-
-
-def _assert_packed_is_current(gen):
-    for stage, packed in zip(gen.checked_stages(), gen.packed_stages()):
-        for convs, pconvs in zip(stage, packed):
-            for (w, b), (pw, pb) in zip(convs, pconvs):
-                c = w.shape[0]
-                assert torch.equal(unpack_weight(pw[0], c), round_tf32(w))
-                assert pb is b or torch.equal(pb, b)
-    red = gen.reduced("bf16")
-    for stage, packed in zip(red.stages, red.packed):
-        for convs, pconvs in zip(stage, packed):
-            for (w, _), (pw, _) in zip(convs, pconvs):
-                assert torch.equal(unpack_weight(pw, w.shape[0]), w)
-
-
-def test_packed_stages_are_kept_and_rebuilt_after_load_state_dict():
-    gen = _generator()
-    first = gen.packed_stages()
-    assert gen.packed_stages() is first  # kept while nothing changes
-    _assert_packed_is_current(gen)
-    other = _generator(seed=1)
-    stale = first[0][0][0][0].clone()
-    gen.load_state_dict(other.state_dict())
-    assert gen.packed_stages() is not first
-    assert not torch.equal(gen.packed_stages()[0][0][0][0], stale)
-    _assert_packed_is_current(gen)
-
-
-def test_packed_stages_are_rebuilt_after_a_training_step():
-    """train() -> an optimiser step -> eval(): the folded buffers are
-    rewritten in place, so the packed copies (f32 and bf16) must go (the
-    pattern of tests/test_torch_train.py::
-    test_eval_after_a_step_uses_the_updated_weights)."""
-    gen = _generator()
-    x = torch.randn(1, 16, 12)
-    with torch.no_grad():
-        before = gen(x)
-    first = gen.packed_stages()
-    stale = first[0][0][0][0].clone()
-    gen.train()
-    opt = torch.optim.SGD(gen.parameters(), lr=0.5)
-    gen(x).square().mean().backward()
-    opt.step()
-    gen.eval()
-    assert gen.packed_stages() is not first
-    assert not torch.equal(gen.packed_stages()[0][0][0][0], stale)
-    _assert_packed_is_current(gen)
-    with torch.no_grad():
-        assert not torch.equal(gen(x), before)
 
 
 def test_pack_stage_keeps_the_branch_structure():

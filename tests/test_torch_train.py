@@ -216,7 +216,7 @@ def test_train_step_moves_weight_normed_and_upstream_parameters(trained):
 
 def test_eval_after_a_step_uses_the_updated_weights(trained):
     """Train one step, switch to eval: Synthesizer.infer equals that of a
-    fresh model loaded from the same state_dict, and the decoder's checked
+    fresh model loaded from the same state_dict, and the decoder's f32
     stages (what the MRF kernel reads by pointer) hold the refolded
     weights, not those from before the step."""
     cfg, state, _, _, _ = trained
@@ -235,7 +235,7 @@ def test_eval_after_a_step_uses_the_updated_weights(trained):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
     conv = net_g.dec.resblocks[0].convs1[0]
     assert not torch.equal(conv.weight, stale)
-    assert net_g.dec.checked_stages()[0][0][0][0] is conv.weight
+    assert net_g.dec.form("f32").stages[0][0][0][0] is conv.weight
     torch.testing.assert_close(
         conv.weight, fresh.dec.resblocks[0].convs1[0].weight)
     net_g.train()

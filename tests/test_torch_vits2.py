@@ -544,14 +544,14 @@ def test_vocos_engine_streams_match_jax(vocos_engines, tail):
 
 
 def test_vocos_engine_refuses_reduced_precision():
-    """`half` and `quantize` run the HiFi-GAN decoder at a reduced
-    precision; the Vocos decoder has no such route, so they raise (the JAX
-    engine warns and serves f32)."""
+    """"bf16" and "int8" run the HiFi-GAN decoder at a reduced precision;
+    the Vocos decoder has no such route, so they raise (the JAX engine
+    warns and serves f32)."""
     cfg = Config.from_dict(copy.deepcopy(VOCOS_ENGINE_CFG))
-    for option in ("half", "quantize"):
-        with pytest.raises(ValueError, match="vocoder_type"):
+    for precision in ("bf16", "int8"):
+        with pytest.raises(ValueError, match="Vocos decoder runs in f32"):
             SynthesisEngine(cfg, Synthesizer(cfg), PHONES, SPEAKERS,
-                            device="cpu", **{option: True})
+                            device="cpu", precision=precision)
 
 
 def test_infer_vits_cli_writes_the_config_rate(tmp_path):

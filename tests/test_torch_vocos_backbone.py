@@ -4,8 +4,8 @@
 On the CPU: the packed weights' layout and TF32 split, the split-TF32
 products against float64, the decoder's choice of path (the CPU and
 autograd keep the modules, and the gradient reaches every parameter), the
-widths the kernels refuse, the wrappers refusing the CPU, and the packed
-weights' lifetime. On the card (`-m cuda`): the kernels against the module
+widths the kernels refuse, and the wrappers refusing the CPU (the packed
+weights' lifetime is held in tests/test_torch_derived.py). On the card (`-m cuda`): the kernels against the module
 path in f32 with TF32 off at the batch cell's shapes and at the smallest
 (one frame refused on both paths), with and without a speaker, within 1e-5
 of the largest magnitude and under a twentieth of a single TF32 pass's
@@ -15,9 +15,6 @@ sent to the modules. Imports nothing of JAX; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_vocos_backbone.py
 """
-
-import copy
-import pickle
 
 import numpy as np
 import pytest
@@ -189,52 +186,6 @@ def test_training_and_the_cpu_keep_the_module_path():
     rep = st.report()["vocos_fused"]
     assert rep["n"] == 2 and rep["count"] == 0
     assert vb.gemm.launches == 0 and vb.rownorm.launches == 0
-
-
-def test_packed_weights_follow_the_parameters():
-    """Packed anew when a conv's weight changes, not for the other
-    parameters; copies and pickles carry none; a move drops them."""
-    dec = tiny_decoder()
-    first = dec.packed_weights()
-    assert dec.packed_weights() is first
-    assert len(first) == 2 * len(dec.layers) + 2
-    with torch.no_grad():
-        dec.norm_pre.gamma.mul_(2.0)
-        dec.layers[0].scale.mul_(2.0)
-        dec.out_conv.bias.add_(1.0)
-    assert dec.packed_weights() is first
-    with torch.no_grad():
-        dec.layers[1].pw_conv2.weight.mul_(2.0)
-    again = dec.packed_weights()
-    assert again is not first
-    hi, lo = unpack_weight(again[4], 24, 40)
-    want = split_tf32(dec.layers[1].pw_conv2.weight[:, :, 0])
-    assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
-    dec.load_state_dict(tiny_decoder(seed=1).state_dict())
-    assert dec.packed_weights() is not again
-    twin = copy.deepcopy(dec)
-    assert twin._packed is None and dec._packed is not None
-    assert pickle.loads(pickle.dumps(dec))._packed is None
-    assert twin.packed_weights() is not dec.packed_weights()
-    assert "_packed" not in dec.state_dict()
-    dec.double().float()
-    assert dec._packed is None
-
-
-def test_packed_weights_of_inference_tensors():
-    """A decoder made or moved under inference_mode has weights that keep
-    no version counter: it packs all the same, and anew on a replacement."""
-    with torch.inference_mode():
-        dec = tiny_decoder().float()
-        assert dec.in_conv.weight.is_inference()
-        first = dec.packed_weights()
-        assert dec.packed_weights() is first
-        dec.in_conv.weight = torch.nn.Parameter(dec.in_conv.weight * 2)
-        again = dec.packed_weights()
-    assert again is not first
-    hi, lo = unpack_weight(again[0], 24, 20)
-    want = split_tf32(dec.in_conv.weight[:, :, 0])
-    assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
 
 
 # ---- on the card -----------------------------------------------------------

@@ -72,7 +72,7 @@ def main(argv=None):
         cfg, load_model(args.model_dir, cfg), phone2id, speaker2id,
         noise_scale=args.noise_scale, length_scale=args.length_scale,
         noise_scale_w=args.noise_scale_w, device=device,
-        half=args.precision == "bf16", quantize=args.precision == "int8")
+        precision=args.precision)
 
     os.makedirs(args.outdir, exist_ok=True)
     sr = cfg.data.sampling_rate

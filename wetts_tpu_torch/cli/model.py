@@ -207,7 +207,7 @@ class Model:
                 warnings.warn(f"frontend bundle unusable ({e}); "
                               "running in raw-phone input mode",
                               stacklevel=2)
-        if precision != "f32" and cfg.model.vocoder_type != "hifigan":
+        if precision not in model.dec.precisions:
             # the JAX engine's choice (serving/engine.py:180-188): a
             # decoder with no reduced-precision route serves f32 with a
             # warning. The port's SynthesisEngine raises instead, so the
@@ -223,8 +223,7 @@ class Model:
         self.engine = SynthesisEngine(
             cfg, model, phone2id, speaker2id, frontend,
             noise_scale=0.667, length_scale=1.0, noise_scale_w=0.8,
-            device=device, half=precision == "bf16",
-            quantize=precision == "int8")
+            device=device, precision=precision)
 
     @property
     def sample_rate(self) -> int:

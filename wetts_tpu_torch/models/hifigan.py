@@ -9,12 +9,12 @@ conv_post(7, no bias) -> tanh.
 The MRF stages take one of two routes, chosen by whether a gradient is
 wanted and by nothing else (never by whether the kernel built or launched):
 
-- inference (eval mode and autograd not recording into the decoder): every
+- inference (eval mode and autograd not recording into the decoder): the
+  decoder runs on its weights at the call's precision (`form`), and every
   stage goes through `mrf.mrf_stage`, which launches kernel K1 on the GPU
-  with the folded weights, packed once into the layout the kernel streams
-  (`packed_stages`) and packed anew after `eval()`, `.to()` or
-  `load_state_dict`; under `torch.export` each stage is one node of the
-  operator `mrf.mrf_stage_op`, whose GPU kernel is the same launcher;
+  with the stage's weights packed into the layout the kernel streams; under
+  `torch.export` each stage is one node of the operator `mrf.mrf_stage_op`,
+  whose GPU kernel is the same launcher;
 - training (`train()` mode, or autograd recording with an input or parameter
   that requires grad): every stage runs `mrf.mrf_stage_reference`, the
   differentiable F.conv1d chain, on kernels computed from
@@ -25,10 +25,11 @@ wanted and by nothing else (never by whether the kernel built or launched):
 conv_pre, cond, the upsample convs and conv_post lay outside any Pallas
 kernel in the JAX package and stay F.conv1d / F.conv_transpose1d.
 
-Inference also runs at a reduced precision (`forward(..., precision=)`, the
+Inference runs at one of three precisions (`forward(..., precision=)`, the
 `dtype` / `quantize` arguments of wetts_tpu/models/hifigan_fast.py:209-323),
 which is an argument of the call and no config knob:
 
+- "f32": the folded weights as they are;
 - "bf16": weight norm is folded in f32 and the folded kernels are cast;
   every conv runs in bf16, the MRF stages through K1's bf16 instance; the
   output is cast back to f32;
@@ -38,9 +39,9 @@ which is an argument of the call and no config knob:
   pass that finds a scale: every later one is the abs-max that the conv
   storing the input took in its epilogue.
 
-The cast and quantised weights are derived once and kept until the module's
-tensors are moved, cast, reloaded or refolded (`eval()`). Asking for a
-reduced precision where a gradient is wanted raises.
+The weights at each precision are derived from the folded buffers and kept
+by the rule of `layers.DerivedWeights`. Asking for a reduced precision where
+a gradient is wanted raises.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ from wetts_tpu_torch.models.layers import (
     LRELU_SLOPE,
     Conv1d,
     ConvTranspose1d,
+    DerivedWeights,
+    WeightNormed,
     get_padding,
 )
 from wetts_tpu_torch.models.mrf import (
@@ -73,30 +76,24 @@ from wetts_tpu_torch.models.quant import (
     row_scale,
     upsample_scale_per_phase,
 )
-
-PRECISIONS = ("f32", "bf16", "int8")
-
-
-def _forget_stages(module: "Generator", _incompatible_keys) -> None:
-    module._forget()
+from wetts_tpu_torch.utils.profiling import StageTimes
 
 
-class _Reduced:
-    """The decoder's weights at a reduced precision, derived from the folded
-    f32 buffers: bf16 copies of conv_pre / cond / conv_post and, for "bf16",
-    of the upsamples and the MRF stages; for "int8" the quantised MRF stages
-    and, made at first use, each upsample's kernel with per-channel or
-    per-phase scales. `packed` holds the bf16 MRF stages as K1 streams
-    them."""
+class _Form:
+    """The decoder's inference weights at one precision from the folded f32
+    tensors, (weight, bias) pairs in `dtype`, the glue's type ("f32" keeps
+    the tensors themselves). "f32" and "bf16" hold every conv's, the MRF
+    stages checked and, on a card, in K1's layout (`packed`); "int8" holds
+    quantised MRF stages and, made at first use, each upsample's kernel
+    with per-channel or per-phase scales."""
 
     def __init__(self, gen: "Generator", precision: str,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype):
         def cast(conv):
-            return (conv.weight.detach().to(dtype),
-                    None if conv.bias is None
-                    else conv.bias.detach().to(dtype))
+            return (conv.weight.to(dtype),
+                    None if conv.bias is None else conv.bias.to(dtype))
 
-        self.dtype = dtype
+        self.precision, self.dtype = precision, dtype
         self.conv_pre = cast(gen.conv_pre)
         self.cond = cast(gen.cond) if hasattr(gen, "cond") else None
         self.conv_post = cast(gen.conv_post)
@@ -105,13 +102,13 @@ class _Reduced:
             self.stages = [quantize_stage(stage, dtype) for stage in stages]
             self.ups: Dict = {}
         else:
-            self.stages = [[[(w.detach().to(dtype), b.detach().to(dtype))
-                             for w, b in convs] for convs in stage]
-                           for stage in stages]
+            self.stages = [[[(w.to(dtype), b.to(dtype)) for w, b in convs]
+                            for convs in stage] for stage in stages]
             for stage in self.stages:
                 check_stage(stage, gen.resblock, gen.kernel_sizes,
                             gen.dilations)
-            self.packed = [pack_stage(stage) for stage in self.stages]
+            self.packed = [pack_stage(stage) if stage[0][0][0].is_cuda
+                           else None for stage in self.stages]
             self.ups = {i: cast(up) for i, up in enumerate(gen.ups)}
 
     def quantized_up(self, gen: "Generator", i: int, per_phase: bool
@@ -171,8 +168,10 @@ class ResBlock2(nn.Module):
         return [(c.kernel(), c.bias) for c in self.convs]
 
 
-class Generator(nn.Module):
+class Generator(DerivedWeights):
     """Latent [B, C_inter, T] -> waveform [B, 1, T * prod(upsample_rates)]."""
+
+    precisions = ("f32", "bf16", "int8")
 
     def __init__(self, initial_channel: int, resblock: str,
                  resblock_kernel_sizes: Sequence[int],
@@ -203,125 +202,74 @@ class Generator(nn.Module):
             for rk, rd in zip(self.kernel_sizes, self.dilations):
                 self.resblocks.append(res_cls(ch, rk, rd))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
-        self._checked_stages: Optional[List[List[Branch]]] = None
-        self._packed_stages: Optional[List[List[Branch]]] = None
-        self._reduced: Dict[str, _Reduced] = {}
-        self.register_load_state_dict_post_hook(_forget_stages)
-
-    def _forget(self) -> None:
-        self._checked_stages = None
-        self._packed_stages = None
-        self._reduced = {}
 
     def stage_convs(self, i: int) -> List[Branch]:
         """Stage i's folded (weight, bias) pairs, one list per branch."""
         n = len(self.kernel_sizes)
         return [rb.folded_convs() for rb in self.resblocks[i * n:(i + 1) * n]]
 
-    def checked_stages(self) -> List[List[Branch]]:
-        """Every stage's folded pairs, passed through `check_stage` once and
-        kept until the module's tensors are moved, cast or reloaded (folding
-        writes the kept tensors in place)."""
-        if self._checked_stages is None:
-            stages = [self.stage_convs(i) for i in range(len(self.ups))]
-            for stage in stages:
-                check_stage(stage, self.resblock, self.kernel_sizes,
-                            self.dilations)
-            self._checked_stages = stages
-        return self._checked_stages
+    def _check(self, precision: str) -> None:
+        if precision not in self.precisions:
+            raise ValueError(f"precision must be one of {self.precisions}, "
+                             f"got {precision!r}")
 
-    def packed_stages(self) -> List[List[Branch]]:
-        """Every checked stage with its weights in K1's layout
-        (`mrf.pack_stage`): copies, so they are kept only until the folded
-        buffers change (`eval()` refolds them) or move."""
-        if self._packed_stages is None:
-            self._packed_stages = [pack_stage(stage)
-                                   for stage in self.checked_stages()]
-        return self._packed_stages
+    def form(self, precision: str) -> _Form:
+        """The inference weights at `precision` (`DerivedWeights`' rule),
+        derived from every conv's folded weight and bias."""
+        self._check(precision)
+        dtype = torch.float32 if precision == "f32" else torch.bfloat16
+        return self.derived(
+            precision, lambda: [(m, n) for m in self.modules()
+                                if isinstance(m, WeightNormed)
+                                for n in ("weight", "bias")
+                                if getattr(m, n) is not None],
+            lambda: _Form(self, precision, dtype))
 
-    def _apply(self, fn, *args, **kwargs):
-        self._forget()
-        return super()._apply(fn, *args, **kwargs)
+    prepare = form
 
-    def train(self, mode: bool = True):
-        """`eval()` refolds the weight-norm buffers; what was derived from
-        them (K1's packed weights, the reduced precisions) is derived anew
-        at its next use."""
-        self._packed_stages = None
-        self._reduced = {}
-        return super().train(mode)
-
-    def reduced(self, precision: str) -> _Reduced:
-        """The weights at "bf16" or "int8", derived once and kept."""
-        if precision not in self._reduced:
-            self._reduced[precision] = _Reduced(self, precision)
-        return self._reduced[precision]
-
-    def gradient_wanted(self, x: torch.Tensor) -> bool:
+    def gradient_wanted(self, *inputs: Optional[torch.Tensor]) -> bool:
         """Whether the decoder must be differentiable for this call: in
         train() mode (where the folded buffers may be stale), or when
-        autograd is recording and `x` or a parameter requires grad."""
+        autograd is recording and an input or a parameter requires grad."""
         return self.training or (torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad
-                                   for p in self.parameters())))
+            any(t is not None and t.requires_grad for t in inputs)
+            or any(p.requires_grad for p in self.parameters())))
 
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
-                precision: str = "f32") -> torch.Tensor:
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                             f"{precision!r}")
+                precision: str = "f32",
+                stages: Optional[StageTimes] = None) -> torch.Tensor:
+        """x [B, C, T] latent, g [B, gin, 1] or None -> [B, 1, T * hop] in
+        f32. `stages` (the decoders' common call) gets no stage of its own."""
+        if not self.gradient_wanted(x, g):
+            return self.infer(x, g, self.form(precision))
         if precision != "f32":
-            if self.gradient_wanted(x):
-                raise RuntimeError(
-                    f"the {precision} decoder is an inference route and has "
-                    "no backward: call eval() and run under torch.no_grad()")
-            return self._forward_reduced(x, g, precision)
+            self._check(precision)
+            raise RuntimeError(
+                f"the {precision} decoder is an inference route and has "
+                "no backward: call eval() and run under torch.no_grad()")
         x = self.conv_pre(x)
         if g is not None and hasattr(self, "cond"):
             x = x + self.cond(g)
         n = len(self.kernel_sizes)
-        if self.gradient_wanted(x):
-            for i, up in enumerate(self.ups):
-                x = up(F.leaky_relu(x, LRELU_SLOPE))
-                stage = [rb.live_convs()
-                         for rb in self.resblocks[i * n:(i + 1) * n]]
-                x = mrf_stage_reference(
-                    x.transpose(1, 2), stage, self.resblock,
-                    self.kernel_sizes, self.dilations).transpose(1, 2)
-        else:
-            stages = self.checked_stages()
-            packed = (self.packed_stages() if x.is_cuda
-                      else [None] * len(stages))
-            # under torch.export the stage is one operator node; else the
-            # launcher, without the operator's host time (models/mrf.py)
-            exporting = torch.compiler.is_exporting()
-            for up, stage, pk in zip(self.ups, stages, packed):
-                x = up(F.leaky_relu(x, LRELU_SLOPE))
-                h = x.transpose(1, 2).contiguous()
-                if exporting:
-                    h = mrf_stage_as_op(h, stage, self.resblock,
-                                        self.kernel_sizes, self.dilations,
-                                        pk)
-                else:
-                    h = mrf_stage(h, stage, self.resblock,
-                                  self.kernel_sizes, self.dilations,
-                                  checked=True, packed=pk)
-                x = h.transpose(1, 2)
+        for i, up in enumerate(self.ups):
+            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            stage = [rb.live_convs()
+                     for rb in self.resblocks[i * n:(i + 1) * n]]
+            x = mrf_stage_reference(
+                x.transpose(1, 2), stage, self.resblock,
+                self.kernel_sizes, self.dilations).transpose(1, 2)
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)
 
-    def _forward_reduced(self, x: torch.Tensor, g: Optional[torch.Tensor],
-                         precision: str,
-                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        """The inference route at "bf16" or "int8" (`dtype` is the type of
-        the glue; the tests also run it in f32 to hold the int8 arithmetic
-        against the JAX package's closely). Returns f32."""
-        red = (self.reduced(precision) if dtype == torch.bfloat16
-               else _Reduced(self, precision, dtype))
-        x = F.conv1d(x.to(dtype), *red.conv_pre, padding=3)
-        if g is not None and red.cond is not None:
-            x = x + F.conv1d(g.to(dtype), *red.cond)
-        if precision == "int8":
+    def infer(self, x: torch.Tensor, g: Optional[torch.Tensor],
+              form: _Form) -> torch.Tensor:
+        """The inference route on `form`'s weights (the tests also run an
+        int8 form with f32 glue, to hold its arithmetic against the JAX
+        package's closely). Returns f32."""
+        x = F.conv1d(x.to(form.dtype), *form.conv_pre, padding=3)
+        if g is not None and form.cond is not None:
+            x = x + F.conv1d(g.to(form.dtype), *form.cond)
+        if form.precision == "int8":
             per_phase = upsample_scale_per_phase(
                 self.upsample_initial_channel, self.upsample_rates,
                 x.shape[2])
@@ -330,27 +278,35 @@ class Generator(nn.Module):
             # abs-max that the conv storing the input took in its epilogue:
             # each upsample's for its stage, each stage's last conv's for
             # the next upsample (rows of one zeroed buffer)
-            n = len(red.stages)
+            n = len(form.stages)
             amax = torch.zeros(2 * n - 1, h.shape[0], device=h.device,
                                dtype=torch.float32)
             sx, x_amax = row_scale(h, LRELU_SLOPE), None
-            for i, stage in enumerate(red.stages):
+            for i, stage in enumerate(form.stages):
                 h = int8_conv_transpose1d(
-                    h, red.quantized_up(self, i, per_phase[i]), LRELU_SLOPE,
+                    h, form.quantized_up(self, i, per_phase[i]), LRELU_SLOPE,
                     sx=sx, x_amax=x_amax, amax_out=amax[2 * i])
                 sx, x_amax = None, amax[2 * i + 1] if i + 1 < n else None
                 h = mrf_stage_int8(h, stage, self.resblock, self.dilations,
                                    x_amax=amax[2 * i], amax_out=x_amax)
             x = h.transpose(1, 2)
         else:
-            for i, (up, stage) in enumerate(zip(self.ups, red.stages)):
+            # under torch.export the stage is one operator node; else the
+            # launcher, without the operator's host time (models/mrf.py)
+            exporting = torch.compiler.is_exporting()
+            for i, (up, stage, pk) in enumerate(zip(self.ups, form.stages,
+                                                    form.packed)):
                 x = F.conv_transpose1d(F.leaky_relu(x, LRELU_SLOPE),
-                                       *red.ups[i], stride=up.stride,
+                                       *form.ups[i], stride=up.stride,
                                        padding=up.padding)
-                h = mrf_stage(x.transpose(1, 2).contiguous(), stage,
-                              self.resblock, self.kernel_sizes,
-                              self.dilations, checked=True,
-                              packed=red.packed[i])
+                h = x.transpose(1, 2).contiguous()
+                if exporting:
+                    h = mrf_stage_as_op(h, stage, self.resblock,
+                                        self.kernel_sizes, self.dilations,
+                                        pk)
+                else:
+                    h = mrf_stage(h, stage, self.resblock, self.kernel_sizes,
+                                  self.dilations, checked=True, packed=pk)
                 x = h.transpose(1, 2)
-        x = F.conv1d(F.leaky_relu(x, 0.01), *red.conv_post, padding=3)
+        x = F.conv1d(F.leaky_relu(x, 0.01), *form.conv_post, padding=3)
         return torch.tanh(x).float()

@@ -31,9 +31,9 @@ latents and masks [B, T, C], the speaker vector g [B, 1, gin], audio
 the JAX engine's `half` / `quantize` options do (serving/engine.py:190-237):
 under either reduced precision the flow runs in bf16, on a bf16 copy of its
 folded parameters (every float tensor, the transformer flows' attention and
-LayerNorm ones too) that is made once, and the HiFi-GAN decoder in bf16 or
-int8 (the Vocos decoder has no reduced route); `encode_prior` stays f32, so
-the realized lengths are those of f32.
+LayerNorm ones too) kept by `layers.DerivedWeights`' rule, and the decoder
+at that precision (`dec.precisions`: Vocos has f32 alone); `encode_prior`
+stays f32, so the realized lengths are those of f32.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from wetts_tpu_torch.models.duration import (
 from wetts_tpu_torch.models.encoders import PosteriorEncoder, TextEncoder
 from wetts_tpu_torch.models.flows import ResidualCouplingBlock
 from wetts_tpu_torch.models.hifigan import Generator
+from wetts_tpu_torch.models.layers import DerivedWeights
 from wetts_tpu_torch.models.vocos import VocosGenerator
 from wetts_tpu_torch.ops import random
 from wetts_tpu_torch.ops.mas import maximum_path
@@ -70,7 +71,7 @@ def _bct(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2)
 
 
-class Synthesizer(nn.Module):
+class Synthesizer(DerivedWeights):
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
@@ -117,30 +118,27 @@ class Synthesizer(nn.Module):
                                         gin_channels=gin)
         if self.n_speakers > 0:
             self.emb_g = nn.Embedding(self.n_speakers, gin)
-        # the bf16 copy of the flow, in a list so that it is no submodule
-        self._flow_bf16: list = []
-        self.register_load_state_dict_post_hook(
-            lambda module, _keys: module._flow_bf16.clear())
 
-    def _apply(self, fn, *args, **kwargs):
-        self._flow_bf16.clear()
-        return super()._apply(fn, *args, **kwargs)
-
-    def train(self, mode: bool = True):
-        self._flow_bf16.clear()  # eval() refolds what the copy was cast from
-        return super().train(mode)
-
-    def flow_bf16(self) -> ResidualCouplingBlock:
-        """The flow with its folded parameters cast to bf16 (weight norm is
-        folded in f32 first), made once and kept until the model's tensors
-        are moved, cast, reloaded or refolded."""
+    def flow_at(self, precision: str) -> ResidualCouplingBlock:
+        """The flow `flow_reverse` runs at `precision`: its own at "f32",
+        else a derived copy with the folded parameters cast to bf16."""
+        if precision == "f32":
+            return self.flow
         if self.training:
             raise RuntimeError("the bf16 flow is an inference route: call "
                                "eval() first")
-        if not self._flow_bf16:
-            self._flow_bf16.append(
-                copy.deepcopy(self.flow).to(torch.bfloat16).eval())
-        return self._flow_bf16[0]
+        return self.derived(
+            "flow_bf16",
+            lambda: [(m, name) for m in self.flow.modules()
+                     for name, t in (*m._parameters.items(),
+                                     *m._buffers.items()) if t is not None],
+            lambda: copy.deepcopy(self.flow).to(torch.bfloat16).eval())
+
+    def prepare(self, precision: str) -> None:
+        """Derive what inference at `precision` reads now, not at the first
+        call; a decoder without that precision raises ValueError."""
+        self.dec.prepare(precision)
+        self.flow_at(precision)
 
     def _speaker(self, sid: Optional[torch.Tensor]
                  ) -> Optional[torch.Tensor]:
@@ -265,9 +263,8 @@ class Synthesizer(nn.Module):
     def flow_reverse(self, z_p, y_mask, g=None, precision: str = "f32"):
         """Prior latent [B, T, C] -> posterior latent z (masked); in bf16
         (inputs cast, z returned in bf16) unless `precision` is "f32"."""
-        flow = self.flow
+        flow = self.flow_at(precision)
         if precision != "f32":
-            flow = self.flow_bf16()
             z_p, y_mask = z_p.to(torch.bfloat16), y_mask.to(torch.bfloat16)
             g = None if g is None else g.to(torch.bfloat16)
         mask = _bct(y_mask)
@@ -291,15 +288,13 @@ class Synthesizer(nn.Module):
     def decode(self, z, g=None, sid=None, precision: str = "f32",
                stages: Optional[StageTimes] = None):
         """Latent z [B, T, C] -> waveform [B, T * hop, 1] in f32
-        (:360-363), the decoder at `precision`. Given `stages`, the Vocos
-        decoder times its backbone and iSTFT into it (HiFi-GAN's decode
-        has no stages of its own)."""
+        (:360-363), the decoder at `precision`. Given `stages`, the decoder
+        times its own stages into it (the Vocos decoder its backbone and
+        iSTFT; HiFi-GAN's decode has none)."""
         if g is None:
             g = self._speaker(sid)
-        timed = ({"stages": stages} if stages is not None
-                 and isinstance(self.dec, VocosGenerator) else {})
         o = self.dec(_bct(z), g=None if g is None else _bct(g),
-                     precision=precision, **timed)
+                     precision=precision, stages=stages)
         return _bct(o)
 
     def infer(self, x, x_lengths, sid=None, noise_scale=1.0,

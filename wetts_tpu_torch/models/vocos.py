@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wetts_tpu_torch.models import vocos_backbone
-from wetts_tpu_torch.models.layers import Conv1d, LayerNorm
+from wetts_tpu_torch.models.layers import Conv1d, DerivedWeights, LayerNorm
 from wetts_tpu_torch.ops.spectral import istft
 from wetts_tpu_torch.utils.profiling import StageTimes
 
@@ -52,7 +52,9 @@ class ConvNeXtLayer(nn.Module):
         return x + self.scale[:, None] * h
 
 
-class VocosGenerator(nn.Module):
+class VocosGenerator(DerivedWeights):
+    precisions = ("f32",)
+
     def __init__(self, in_channels: int, channels: int, h_channels: int,
                  out_channels: int, num_layers: int, istft_n_fft: int = 1024,
                  istft_hop_length: int = 256, istft_win_length: int = 1024,
@@ -68,33 +70,22 @@ class VocosGenerator(nn.Module):
             for _ in range(num_layers))
         self.norm_post = LayerNorm(channels)
         self.out_conv = Conv1d(channels, out_channels, 1)
-        # (key, weights) the kernels read: see packed_weights
-        self._packed = None
 
     def packed_weights(self) -> List[torch.Tensor]:
         """The 1x1 convs' weights packed for the kernels
-        (`vocos_backbone.pack_weight`) in the backbone's order, packed anew
-        once one of those weights has been replaced or written in place
-        (its version counter moved) and after any move (`_apply`). An
-        inference tensor (a weight made under `torch.inference_mode`)
-        keeps no version counter: for it only a replacement counts."""
+        (`vocos_backbone.pack_weight`) in the backbone's order, derived from
+        those weights alone and kept by the rule of `DerivedWeights`."""
         convs = vocos_backbone.convs(self)
-        key = tuple((c.weight.data_ptr(), None if c.weight.is_inference()
-                     else c.weight._version) for c in convs)
-        if self._packed is None or self._packed[0] != key:
-            self._packed = (key, [vocos_backbone.pack_weight(
-                c.weight[:, :, 0]) for c in convs])
-        return self._packed[1]
+        return self.derived(
+            "packed", lambda: [(c, "weight") for c in convs],
+            lambda: [vocos_backbone.pack_weight(c.weight[:, :, 0])
+                     for c in convs])
 
-    def _apply(self, fn, *args, **kwargs):
-        self._packed = None
-        return super()._apply(fn, *args, **kwargs)
-
-    def __getstate__(self):
-        # copies and pickles carry no packed weights: they pack their own
-        state = super().__getstate__()
-        state["_packed"] = None
-        return state
+    def prepare(self, precision: str) -> None:
+        """Raises ValueError unless `precision` is one of `precisions`."""
+        if precision not in self.precisions:
+            raise ValueError(f"the Vocos decoder runs in f32 only, not "
+                             f"{precision!r}")
 
     def backbone_modules(self, x: torch.Tensor,
                          g: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -112,9 +103,7 @@ class VocosGenerator(nn.Module):
                 precision: str = "f32",
                 stages: Optional[StageTimes] = None) -> torch.Tensor:
         """x [B, C, T] latent, g [B, gin, 1] or None -> [B, 1, T * hop]."""
-        if precision != "f32":
-            raise ValueError(f"the Vocos decoder runs in f32 only, not "
-                             f"{precision!r}")
+        self.prepare(precision)
 
         def stage(name):
             return (contextlib.nullcontext() if stages is None

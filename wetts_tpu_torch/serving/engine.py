@@ -22,14 +22,14 @@ it has: the JAX engine pads it to a bucket for its jit caches, which have no
 counterpart here. Every decode runs at the engine's precision, so the
 streamed chunks go through the same kernels as a batch does.
 
-`half` and `quantize` are the JAX engine's reduced-precision options
-(serving/engine.py:112-113,141-152): under either the flow reverse runs in
-bf16; the decoder runs in bf16 (`half`) or with int8 upsample and MRF
-convolutions and bf16 glue (`quantize`, which wins where both are set).
-The text encoder and the duration predictor stay f32, so the realized
-lengths are those of the f32 engine. The port has one decoder, so there is
-no "fast decoder unavailable" case to warn about: a vocoder it cannot run
-at a reduced precision raises.
+`precision` ("f32", "bf16" or "int8") is the JAX engine's `half` /
+`quantize` (serving/engine.py:112-113,141-152): below f32 the flow reverse
+runs in bf16, and the decoder in bf16 or with int8 upsample and MRF
+convolutions and bf16 glue. The text encoder and the duration predictor
+stay f32, so the realized lengths are those of the f32 engine. The model
+derives what the precision reads when the engine is built
+(`Synthesizer.prepare`); a decoder without that precision raises
+ValueError there, where the JAX engine warns and serves f32.
 
 Synthesis is the JAX engine's two-phase path: encode at the
 (text_pad, max_frames) bucket, which fixes the `max_frames` clip of the
@@ -116,24 +116,14 @@ class SynthesisEngine:
         noise_scale_w: float = 0.8,
         seed: int = 0,
         device=None,
-        half: bool = False,
-        quantize: bool = False,
+        precision: str = "f32",
         stream_batch_tail: bool = True,
     ):
-        if (half or quantize) and cfg.model.vocoder_type != "hifigan":
-            raise ValueError(
-                "half/quantize run the HiFi-GAN decoder at a reduced "
-                f"precision; vocoder_type={cfg.model.vocoder_type!r} has "
-                "no such route")
-        self.half, self.quantize = bool(half), bool(quantize)
-        self.precision = "int8" if quantize else "bf16" if half else "f32"
+        self.precision = precision
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
-        if self.precision != "f32":
-            # derive the bf16 / int8 weights now, not on the first request
-            self.model.flow_bf16()
-            self.model.dec.reduced(self.precision)
+        self.model.prepare(precision)
         self.phone2id = phone2id
         self.speaker2id = speaker2id or {}
         self.frontend = frontend
@@ -305,11 +295,10 @@ class SynthesisEngine:
             fb = self._frame_bucket(int(y_len.max()), max_frames)
             # a flow key is first seen with its encode key, so a flow graph
             # is captured only once the encode replays, and reads the
-            # encode graph's outputs. The flow module is in the key: the
-            # bf16 copy is made anew after the model is moved, reloaded or
-            # refolded
-            flow_key = key + (fb, precision, model.flow if precision == "f32"
-                              else model.flow_bf16())
+            # encode graph's outputs. The flow it runs is in the key: a
+            # graph reads its tensors by pointer, and a derived flow is
+            # made anew whenever what it is derived from changes
+            flow_key = key + (fb, precision, model.flow_at(precision))
             with self.stage_times.stage("flow"):
                 z = run(flow_key, flow, z_p, y_mask, g)
                 # a graph's outputs are rewritten by its next replay
